@@ -1,0 +1,160 @@
+"""Stage-I training step (counterpart of hairgs_tpu/train/trainer.py:27-44,
+66-184,214-254): render -> loss -> backward -> densification statistics ->
+Adam, for one camera per step.
+
+One fused render per step; one backward pass. The photometric losses read
+`render_photo` and the mask / orientation losses read `render`, so the
+compositor's backward receives the two cotangents separately and writes the
+photometric-only viewspace gradients into the aux rows.
+"""
+
+import torch
+
+from hairgs_tpu_torch import resolve_device
+from hairgs_tpu_torch.core.schedules import expon_lr
+from hairgs_tpu_torch.losses.photometric import (
+    l1_loss,
+    mask_loss_from_channel,
+    orientation_loss_from_channels,
+    psnr,
+)
+from hairgs_tpu_torch.models.gaussian import (
+    MASK,
+    ORIENT,
+    GaussianParams,
+    GaussianStats,
+    gaussian_render_inputs,
+)
+from hairgs_tpu_torch.ops.ssim import ssim
+from hairgs_tpu_torch.optim import adam_step
+from hairgs_tpu_torch.render.renderer import RasterConfig, render
+
+
+def gaussian_lr_tree(opt_cfg, step, spatial_lr_scale):
+    """Per-group learning rates (scene/gaussian_model.py:216-258)."""
+    xyz_lr = expon_lr(
+        step,
+        opt_cfg.position_lr_init * spatial_lr_scale,
+        opt_cfg.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+        max_steps=opt_cfg.position_lr_max_steps,
+    )
+    return GaussianParams(
+        xyz=xyz_lr,
+        features_dc=opt_cfg.feature_lr,
+        features_rest=opt_cfg.feature_lr / 20.0,
+        scaling=opt_cfg.scaling_lr,
+        rotation=opt_cfg.rotation_lr,
+        opacity=opt_cfg.opacity_lr,
+        mask=opt_cfg.mask_lr,
+    )
+
+
+def _update_stats(stats: GaussianStats, radii, offset_grad, active):
+    """Densification statistics (scene/gaussian_model.py:675-682): max
+    screen radius, accumulated viewspace-gradient norm, visit count. Takes
+    one view (radii (N,)) or a batch of views (radii (B,N))."""
+    if radii.ndim == 1:
+        radii = radii[None]
+        offset_grad = offset_grad[None]
+    vis = (radii > 0) & active[None]
+    best = torch.amax(torch.where(vis, radii, torch.zeros_like(radii)), dim=0)
+    max_radii2d = torch.maximum(stats.max_radii2d, best)
+    gnorm = torch.linalg.vector_norm(offset_grad[..., :2], dim=-1, keepdim=True)
+    xyz_grad_accum = stats.xyz_grad_accum + torch.sum(
+        torch.where(vis[..., None], gnorm, torch.zeros_like(gnorm)), dim=0)
+    denom = stats.denom + torch.sum(vis[..., None], dim=0).to(stats.denom.dtype)
+    return GaussianStats(max_radii2d=max_radii2d, xyz_grad_accum=xyz_grad_accum,
+                         denom=denom)
+
+
+def _photometric_loss(channels, camera, opt_cfg):
+    """The l1 + D-SSIM part only: what drives the densification statistics
+    in the reference (train.py:173-177)."""
+    image = channels[..., :3]
+    l1 = l1_loss(image, camera.image)
+    dssim = 1.0 - ssim(image, camera.image)
+    loss = max(0.0, 1.0 - opt_cfg.lambda_dssim) * l1 + opt_cfg.lambda_dssim * dssim
+    with torch.no_grad():
+        train_psnr = psnr(torch.clamp(image, 0.0, 1.0), camera.image)
+    return loss, {"l1": l1, "dssim": dssim, "psnr": train_psnr}
+
+
+def _auxiliary_loss(channels, camera, opt_cfg):
+    """Mask + orientation terms on the fused channels."""
+    loss = torch.zeros((), device=channels.device)
+    loss_dict = {}
+    if opt_cfg.lambda_mask > 0 and camera.mask is not None:
+        loss_dict["mask"] = mask_loss_from_channel(channels[..., MASK], camera.mask)
+        loss = loss + opt_cfg.lambda_mask * loss_dict["mask"]
+    if opt_cfg.lambda_orientation > 0 and camera.orientation is not None:
+        loss_dict["orientation"] = orientation_loss_from_channels(
+            channels[..., ORIENT], camera)
+        loss = loss + opt_cfg.lambda_orientation * loss_dict["orientation"]
+    return loss, loss_dict
+
+
+def render_loss_and_grads(render_inputs_fn, params, camera, active, opt_cfg,
+                          raster_cfg, width, height, render_fn=render):
+    """One fused forward and one backward. Returns (loss, param_grads,
+    offset_grad, aux): param_grads from the total loss, offset_grad the
+    photometric-only viewspace gradient (N,2) that feeds the statistics."""
+    leaves = [t.detach().requires_grad_(True) for t in params]
+    p = type(params)(*leaves)
+    offset0 = torch.zeros((active.shape[0], 2), dtype=torch.float32,
+                          device=active.device, requires_grad=True)
+    out = render_fn(camera, **render_inputs_fn(p), active=active,
+                    mean2d_offset=offset0, width=width, height=height,
+                    config=raster_cfg)
+    photo_loss, photo_parts = _photometric_loss(out["render_photo"], camera, opt_cfg)
+    aux_loss, aux_parts = _auxiliary_loss(out["render"], camera, opt_cfg)
+    loss = photo_loss + aux_loss
+    grads = torch.autograd.grad(loss, leaves + [offset0], allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, leaves + [offset0])]
+    aux = dict(
+        loss_dict={k: v.detach() for k, v in {**photo_parts, **aux_parts}.items()},
+        radii=out["radii"],
+        overflow_pairs=out["overflow_pairs"],
+        overflow_tiles=out["overflow_tiles"],
+        overflow_capacity=out["overflow_capacity"],
+        pairs_demand=out["pairs_demand"],
+        image=out["render"][..., :3].detach(),
+    )
+    return loss.detach(), type(params)(*grads[:-1]), grads[-1], aux
+
+
+def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
+                             height: int, active_sh_degree: int,
+                             spatial_lr_scale: float = 1.0, device="cuda"):
+    """Build the Stage-I train step for one camera per step.
+
+    step_fn(params, stats, opt_state, active, camera, step) -> (params,
+    stats, opt_state, metrics, image), the JAX step's signature. All tensors
+    live on `device`. `step` is a Python int (its learning rate is then
+    computed in float32 on the host, so the card never waits for a copy) or
+    a 0-d tensor.
+    """
+    resolve_device(device)
+
+    def step_fn(params, stats, opt_state, active, camera, step):
+        loss, grads, offset_grad, aux = render_loss_and_grads(
+            lambda p: gaussian_render_inputs(p, camera.cam_center, active_sh_degree),
+            params, camera, active, opt_cfg, raster_cfg, width, height)
+        stats = _update_stats(stats, aux["radii"], offset_grad, active)
+        lr_tree = gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
+        if not torch.is_tensor(step):
+            lr_tree = lr_tree._replace(xyz=lr_tree.xyz.item())
+        with torch.no_grad():
+            params, opt_state = adam_step(params, grads, opt_state, lr_tree)
+        loss_dict = dict(aux["loss_dict"])
+        train_psnr = loss_dict.pop("psnr")
+        metrics = dict(loss=loss, psnr=train_psnr,
+                       **{f"loss/{k}": v for k, v in loss_dict.items()},
+                       overflow_pairs=aux["overflow_pairs"],
+                       overflow_tiles=aux["overflow_tiles"],
+                       overflow_capacity=aux["overflow_capacity"],
+                       pairs_demand=aux["pairs_demand"])
+        return params, stats, opt_state, metrics, aux["image"]
+
+    return step_fn
