@@ -1,13 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-Builds the compositor kernels from `hairgs_tpu_torch/csrc/`, holds each one
-against its plain PyTorch version on the card, drives the Stage-I train step
-at bench width (100k Gaussians, 999x1000, 4 ring cameras) through
-`make_gaussian_train_step`, checks that the step went through both kernels,
-and prints the kernels' times beside their bounds and beside the same
-sources built with FMA contraction. Exits non-zero on any
-failure, and when no CUDA device is present.
+Builds the kernels of `hairgs_tpu_torch/csrc/` (both compositor passes, each
+with an f32 and a bf16 feature plane, and the precision probe), holds each
+one against its plain PyTorch version on the card, drives the Stage-I train
+step at bench width (100k Gaussians, 999x1000, 4 ring cameras) through
+`make_gaussian_train_step` with an f32 and a bf16 feature plane and with
+the 4 views stacked into one step, checks that each run went through its
+kernels, holds the kernel path against the XLA path (the port of
+scripts/tpu_parity_check.py), runs the precision probe, and prints the
+kernels' times beside their bounds. Exits non-zero on any failure, and when
+no CUDA device is present.
+
+Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
+versions; 5 the f32 train step; 6 f32 kernel times (and the FMA build);
+7 the bf16 feature plane (kernels, then the bf16 train step); 8 view
+batches (small scene against the CPU, then the 4 bench views in one step);
+9 kernel path against XLA path at 20k Gaussians and 512x512; 10 the
+precision probe.
 
     python3 chip_smoke.py
 
@@ -15,7 +25,9 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -23,9 +35,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) and
+# dense TF32 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 # fp32 operations per (pair, pixel), counted from the kernels' arithmetic.
 # Every pair of a tile's list meets every pixel of the tile in the gates:
 # offsets, the quadratic form, exp, the opacity product, the clamp and the
@@ -41,10 +55,28 @@ PIX = 256
 FMA = "_fma"  # suffix of the libraries built with FMA contraction (phase 6)
 FWD_GATE = 1e-3  # image / transmittance max abs error
 BWD_GATE = 5e-3  # gradient max abs error relative to max |plain|
-# gradient error in the L2 norm relative to ||plain||: the kernel and its
-# plain version differ only in the order of the 256-pixel sums, which
-# leaves about 1e-7 of the typical value
+# gradient error in the L2 norm relative to ||plain||: the plain version
+# repeats the kernel's float32 operations in the kernel's order, the
+# 256-pixel sums included, so the two should agree to the bit; the gate
+# leaves room for rounding
 BWD_REL_L2_GATE = 1e-5
+# bf16 d_feat: each entry within one bf16 ulp of the plain value,
+# |k - p| <= 2^-7 |p| (or both 0). The L2 gate above does not apply to a
+# bf16 plane: its rounding alone is ~2^-9 of each value
+BF16_ULP = 2.0**-7
+# precision probe (phase 10): kernel against float64 on the host
+PROBE_FP32_REL = 1e-5
+PROBE_TF32_REL = 2e-3
+PROBE_ELEM_REL = 1e-6
+# kernel against its plain version on the card, relative to max|plain|: a
+# wrong mma fragment mapping is off by O(1)
+PROBE_PLAIN_REL = 1e-5
+# kernel path against XLA path (scripts/tpu_parity_check.py:50-58)
+PARITY_IMAGE = 1e-3
+PARITY_LOSS_REL = 1e-2
+PARITY_GRAD_REL = 5e-3
+GRAD_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity", "mask")
 
 
 def fail(msg):
@@ -58,6 +90,24 @@ def smi_line():
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else \
         f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def ptxas_summary(report):
+    """Registers and spills of the instantiations the bench runs (C = 7
+    channels, and the probe), from nvcc's -Xptxas -v report."""
+    out, entry, spill = [], None, "?"
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores", line)):
+            spill = m.group(1)
+        elif entry and ("ILi7E" in entry or "probe" in entry) and \
+                (m := re.search(r"Used (\d+) registers", line)):
+            args = re.search(r"kernel(I.*?E)Ev", entry)
+            out.append(f"{args.group(1) if args else 'probe_kernel'}: "
+                       f"{m.group(1)} registers, {spill} B spill stores")
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -253,26 +303,28 @@ def table_sizes(counts, chunk):
     return counts.shape[0], int(counts.sum()), int(nchunks.sum())
 
 
-def fwd_bound_ms(counts, chunk, C, gates):
+def fwd_bound_ms(counts, chunk, C, gates, feat_bytes=4):
     """Bytes: reads geometry rows 0-5 (x, y, conic, opacity) and the C
-    feature rows of every pair in the tiles' lists, and the tile tables;
-    writes the image, T and the start transmittance of every chunk that
-    runs (the rest of `tstarts` is the wrapper's zero fill)."""
+    feature rows (feat_bytes each) of every pair in the tiles' lists, and
+    the tile tables; writes the image, T and the start transmittance of
+    every chunk that runs (the rest of `tstarts` is the wrapper's zero
+    fill)."""
     nt, pairs, chunks = table_sizes(counts, chunk)
-    bytes_ = 4 * (pairs * (6 + C) + 2 * nt + nt * PIX * (C + 1) + chunks * PIX)
+    bytes_ = (4 * (pairs * 6 + 2 * nt + nt * PIX * (C + 1) + chunks * PIX)
+              + feat_bytes * pairs * C)
     n_all, n_pass = gates
     return bound_ms(bytes_, n_all * GATE_OPS + n_pass * FWD_PASS_OPS)
 
 
-def bwd_bound_ms(cnt, chunk, C, gates):
-    """Bytes: reads geometry rows 0-5 and the C feature rows of every pair
-    the clamped counts keep, the tile tables, the start transmittance of
-    every chunk that runs, T, the two image cotangents and g_T; writes the
-    8 geometry and C feature gradients of those pairs (the other slots are
-    the wrapper's zero fill)."""
+def bwd_bound_ms(cnt, chunk, C, gates, feat_bytes=4):
+    """Bytes: reads geometry rows 0-5 and the C feature rows (feat_bytes
+    each) of every pair the clamped counts keep, the tile tables, the start
+    transmittance of every chunk that runs, T, the two image cotangents and
+    g_T; writes the 8 geometry and C feature gradients of those pairs (the
+    other slots are the wrapper's zero fill)."""
     nt, pairs, chunks = table_sizes(cnt, chunk)
-    bytes_ = 4 * (pairs * (6 + C) + 2 * nt + chunks * PIX + nt * PIX * (2 + 2 * C)
-                  + pairs * (8 + C))
+    bytes_ = (4 * (pairs * 6 + 2 * nt + chunks * PIX + nt * PIX * (2 + 2 * C)
+                   + pairs * 8) + 2 * feat_bytes * pairs * C)
     n_all, n_pass = gates
     return bound_ms(bytes_, n_all * GATE_OPS + n_pass * BWD_PASS_OPS)
 
@@ -342,11 +394,232 @@ def profile_steps(step_fn, state, scene, n_steps=4, top=14):
               f"{name[:90]}")
 
 
+def check_bf16(name, geo, feat, starts, counts, f32_fwd, grid_w, chunk,
+               max_chunks, C, seed):
+    """Both kernels on the bf16 feature plane against their plain versions:
+    image < FWD_GATE; T and tstarts equal to the f32 kernels' bit for bit
+    (no feature touches them); d_geo with the f32 gates of grad_gate;
+    d_feat in bf16, every entry within one bf16 ulp of the plain value.
+    Returns (image error, worst d_feat abs error, the bf16 forward)."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    feat_b = feat.to(torch.bfloat16)
+    args = (geo, feat_b, starts, counts, grid_w, 16, chunk, max_chunks, C)
+    k_out, k_t, k_ts = cp.composite_pairs_fwd_cuda(*args)
+    p_out, p_t, _ = cp.composite_pairs_fwd_plain(*args)
+    torch.cuda.synchronize()
+    img_err = (k_out - p_out).abs().max().item()
+    t_equal = torch.equal(k_t, f32_fwd[1]) and torch.equal(k_ts, f32_fwd[2])
+    print(f"  forward bf16 {name}: image max abs err {img_err:.3e} (against "
+          f"the f32 kernel {(k_out - f32_fwd[0]).abs().max().item():.3e}); T "
+          f"and tstarts bit-equal to the f32 kernel's: {t_equal}; T against "
+          f"plain {(k_t - p_t).abs().max().item():.3e}")
+    if not t_equal or img_err >= FWD_GATE or not torch.isfinite(k_out).all():
+        fail(f"bf16 forward kernel disagrees on {name}")
+    g_out, g_photo, g_trans = bwd_cotangents(starts.shape[0], C, seed, geo.device)
+    cnt = cp.clamp_counts_to_live_chunks(counts, k_ts, chunk, max_chunks)
+    worst = 0.0
+    for stats in (True, False):
+        bargs = (geo, feat_b, starts, cnt, k_ts, k_t, g_out, g_photo, g_trans,
+                 grid_w, 16, chunk, max_chunks, C, stats)
+        k_geo, k_feat = cp.composite_pairs_bwd_cuda(*bargs)
+        p_geo, p_feat = cp.composite_pairs_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        ok, err, rel = grad_gate(k_geo, p_geo)
+        kf, pf = k_feat.float(), p_feat.float()
+        beyond = int(((kf - pf).abs() > BF16_ULP * pf.abs()).sum())
+        f_err = (kf - pf).abs().max().item()
+        worst = max(worst, f_err)
+        print(f"  backward bf16 {name} stats={stats}: d_geo max abs err "
+              f"{err:.3e}, rel L2 err {rel:.3e}; d_feat ({k_feat.dtype}) max "
+              f"abs err {f_err:.3e}, entries beyond one bf16 ulp {beyond}")
+        if not ok or k_feat.dtype != torch.bfloat16 or beyond \
+                or not torch.isfinite(kf).all():
+            fail(f"bf16 backward kernel disagrees on {name} stats={stats}")
+    return img_err, worst, (k_out, k_t, k_ts)
+
+
+def run_steps(step_fn, state, active, cam_for, n_warm, n_timed, first_step):
+    """n_warm + n_timed train steps; returns (state, metrics, image, mean ms
+    of the timed steps to the final synchronize, host median ms)."""
+    params, stats, opt_state = state
+    for i in range(n_warm):
+        params, stats, opt_state, metrics, _ = step_fn(
+            params, stats, opt_state, active, cam_for(i), first_step + i)
+    torch.cuda.synchronize()
+    # host marks after each step, unsynchronised: the host runs ahead of the
+    # card only by what the launch queue holds, so their spacing is the
+    # per-step time while the step is host-bound
+    marks = [time.perf_counter()]
+    for i in range(n_warm, n_warm + n_timed):
+        params, stats, opt_state, metrics, image = step_fn(
+            params, stats, opt_state, active, cam_for(i), first_step + i)
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - marks[0]
+    return ((params, stats, opt_state), metrics, image, dt / n_timed * 1e3,
+            float(np.median(np.diff(marks))) * 1e3)
+
+
+def check_step_outputs(what, params, metrics, image, scene):
+    loss = metrics["loss"].item()
+    if not np.isfinite(loss) or not all(torch.isfinite(p).all() for p in params):
+        fail(f"non-finite loss or parameters after the {what}")
+    if tuple(image.shape) != (scene.height, scene.width, 3):
+        fail(f"image shape {tuple(image.shape)} after the {what}")
+    return loss
+
+
+def check_batched_against_cpu(cfg, n_views=3):
+    """Loss, gradients and statistics of a small bench scene with n_views
+    cameras stacked into one batch, on the card (kernels) and on the CPU
+    (plain versions), from the same state: loss to 1e-4 relative, every
+    gradient, offset gradient and radius to 5e-3 x max |cpu|."""
+    from hairgs_tpu_torch.bench_scene import build_bench_scene
+    from hairgs_tpu_torch.core.camera import stack_cameras
+    from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
+    from hairgs_tpu_torch.train.trainer import _per_view, render_loss_and_grads
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        s = build_bench_scene(n_gaussians=3000, width=128, height=96, seed=1,
+                              capacity_round=1024, device=dev)
+        loss, grads, offset_grads, aux = _per_view(
+            lambda cam: render_loss_and_grads(
+                lambda p: gaussian_render_inputs(p, cam.cam_center, 0),
+                s.params, cam, s.active, s.opt_cfg, cfg, s.width, s.height),
+            stack_cameras(s.cams[:n_views]))
+        out.append((loss.item(), [g.cpu() for g in grads]
+                    + [offset_grads.cpu(), aux["radii"].cpu()]))
+    (lg, gg), (lc, gc) = out
+    print(f"  small batch of {n_views} views: loss cuda {lg:.7f} cpu {lc:.7f}; "
+          f"offset gradients {tuple(gg[-2].shape)}, radii {tuple(gg[-1].shape)}")
+    if not np.isfinite(lg) or abs(lg - lc) > 1e-4 * max(1.0, abs(lc)):
+        fail("batched loss on the card disagrees with the CPU")
+    for name, a, b in zip(GRAD_NAMES + ("viewspace", "radii"), gg, gc):
+        if b.numel() == 0:
+            continue
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+        print(f"    {name}: rel err {rel:.3e}")
+        if not torch.isfinite(a).all() or rel > BWD_GATE:
+            fail(f"batched {name} on the card disagrees with the CPU")
+
+
+def parity_kernel_vs_xla(device):
+    """scripts/tpu_parity_check.py:30-61 on the card: one 20k-Gaussian
+    512x512 bench view rendered by the kernel path and by the XLA path,
+    loss sum(render^2) + 0.5 sum(final_T), images and every parameter
+    gradient compared. Returns the forward+backward ms of both paths."""
+    from hairgs_tpu_torch.bench_scene import build_bench_scene
+    from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
+    from hairgs_tpu_torch.render.renderer import RasterConfig, render
+
+    s = build_bench_scene(n_gaussians=20_000, width=512, height=512,
+                          device=device)
+    cam = s.cams[0]
+
+    def loss_and_grads(cfg):
+        leaves = [t.detach().requires_grad_(True) for t in s.params]
+        p = type(s.params)(*leaves)
+        out = render(cam, **gaussian_render_inputs(p, cam.cam_center, 0),
+                     active=s.active, width=s.width, height=s.height, config=cfg)
+        img = out["render"]
+        loss = torch.sum(img * img) + 0.5 * torch.sum(out["final_T"])
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.item(), img.detach(), grads
+
+    results, ms = {}, {}
+    for use_pallas in (True, False):
+        cfg = RasterConfig(max_tiles_per_gaussian=16, max_pairs_per_tile=1024,
+                           chunk=128, use_pallas=use_pallas)
+        loss_and_grads(cfg)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[use_pallas] = loss_and_grads(cfg)
+        torch.cuda.synchronize()
+        ms[use_pallas] = (time.perf_counter() - t0) * 1e3
+    (lp, img_p, gp), (lx, img_x, gx) = results[True], results[False]
+    img_err = (img_p - img_x).abs().max().item()
+    ok = img_err < PARITY_IMAGE and abs(lp - lx) < PARITY_LOSS_REL * max(1.0, abs(lx))
+    errs = {}
+    for name, a, b in zip(GRAD_NAMES, gp, gx):
+        if b is None or b.numel() == 0:
+            continue
+        errs[name] = (a - b).abs().max().item() / (b.abs().max().item() + 1e-6)
+        ok = ok and bool(torch.isfinite(a).all()) and errs[name] < PARITY_GRAD_REL
+    print(f"  image max err {img_err:.2e}; loss {lp:.4f} vs {lx:.4f}; grad rel "
+          f"errs " + " ".join(f"{k}={v:.1e}" for k, v in errs.items()))
+    print(f"  forward+backward: kernel path {ms[True]:.3f} ms, XLA path "
+          f"{ms[False]:.3f} ms")
+    if not ok:
+        fail("kernel path and XLA path disagree (tpu_parity_check gates)")
+    return ms
+
+
+def probe_bound_ms(m, n, k, n_elem):
+    """Bytes: A, B, x, al read once, the four outputs written once. Work:
+    one fp32 product on the fp32 peak, one TF32 product on the TF32 peak,
+    and the 2 n_elem transcendental on the fp32 peak."""
+    bytes_ = 4 * (m * k + k * n + 2 * n_elem + 2 * m * n + 2 * n_elem)
+    t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
+    t_ops = (2 * m * n * k / PEAK_FP32_FLOP_PER_S + 2 * m * n * k / PEAK_TF32_FLOP_PER_S
+             + 2 * n_elem / PEAK_FP32_FLOP_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_probe(device):
+    """The probe's entry point on the card, its kernel against its plain
+    version and float64, and its times. Returns the kernels-line entry."""
+    from hairgs_tpu_torch.probes import precision_probe as pp
+
+    pp.reset_launches()
+    k_out, l_out, truth, lines = pp.run_probe(device)
+    launches = pp.launches["precision_probe"]
+    for line in lines:
+        print("  " + line)
+    g_dot, g_exp, g_l1p = truth
+    rels = {"fp32": pp.rel(k_out[0], g_dot), "tf32": pp.rel(k_out[1], g_dot),
+            "exp": pp.rel(k_out[2], g_exp), "log1p": pp.rel(k_out[3], g_l1p)}
+    t = [torch.tensor(a, device=device) for a in pp.probe_inputs()]
+    k_t = pp.probe_cuda(*t)
+    p_t = pp.probe_plain(*t)
+    torch.cuda.synchronize()
+    plain_err = {n: ((a - b).abs().max().item(), b.abs().max().item())
+                 for n, a, b in zip(("fp32", "tf32", "exp", "log1p"), k_t, p_t)}
+    bits = {n: int((a != b).sum()) for n, a, b in
+            zip(("fp32", "tf32", "exp", "log1p"), k_t, p_t)}
+    print(f"  kernel rel-vs-f64 {rels}; kernel against plain (max abs err, "
+          f"max|plain|) {plain_err}; entries not bit-equal to plain {bits}; "
+          f"launches from the entry point {launches}")
+    if not (rels["fp32"] < PROBE_FP32_REL and rels["fp32"] < rels["tf32"] < PROBE_TF32_REL
+            and rels["exp"] < PROBE_ELEM_REL and rels["log1p"] < PROBE_ELEM_REL):
+        fail(f"precision probe outside its gates against float64: {rels}")
+    if any(e > PROBE_PLAIN_REL * m for e, m in plain_err.values()):
+        fail(f"precision probe kernel disagrees with its plain version: {plain_err}")
+    if launches != 1:
+        fail(f"the probe's entry point launched the kernel {launches} times")
+    ms = cuda_ms(lambda: pp.probe_cuda(*t), 200)
+    plain_ms = cuda_ms(lambda: pp.probe_plain(*t), 200)
+    lib_ms = cuda_ms(lambda: pp.library_outputs(*t), 200)
+    bound, by = probe_bound_ms(256, 128, 128, t[2].numel())
+    print(f"  precision_probe {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms: torch.matmul fp32 and TF32, exp, log1p; bound "
+          f"{bound:.6f} ms by {by})")
+    return {"name": "precision_probe", "route": "cuda",
+            "source": "hairgs_tpu_torch/csrc/precision_probe.cu",
+            "replaces": "scripts/mosaic_precision_probe.py:41",
+            "launches": launches,
+            "max_abs_err": max(e for e, _ in plain_err.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
     from hairgs_tpu_torch import kernels
     from hairgs_tpu_torch.bench_scene import build_bench_scene
+    from hairgs_tpu_torch.core.camera import stack_cameras
     from hairgs_tpu_torch.render import composite_pairs as cp
     from hairgs_tpu_torch.render.renderer import RasterConfig
     from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
@@ -356,15 +629,16 @@ def main():
           f"python {sys.version.split()[0]}")
 
     print("phase 1: build kernels")
-    # the shipped libraries, and for phase 6 the same sources built with
-    # nvcc's default FMA contraction instead of --fmad=false
+    # the shipped libraries (each compositor pass with its f32 and bf16
+    # entry points, and the precision probe), and for phase 6 the same
+    # sources built with nvcc's default FMA contraction instead of
+    # --fmad=false; every nvcc process starts at once
     report = kernels.build(verbose=True, variants={
         "": kernels.NVCC_FLAGS,
         FMA: [f for f in kernels.NVCC_FLAGS if f != "--fmad=false"]})
     for name, r in report.items():
-        regs = [ln.strip() for ln in r["ptxas"].splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"  {name}: built in {r['seconds']:.1f} s; " + " | ".join(regs[:4]))
+        print(f"  {name}: built in {r['seconds']:.1f} s; "
+              + " | ".join(ptxas_summary(r["ptxas"])))
 
     print("phase 2: card")
     smi = smi_line()
@@ -372,12 +646,15 @@ def main():
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
 
+    # use_pallas=True: the paged path, whose passes are the CUDA kernels
     cfg = RasterConfig(max_tiles_per_gaussian=16, max_pairs_per_tile=2048,
                        chunk=128, pair_capacity=786432, viewspace_stats=True,
-                       alpha_min=1.0 / 255.0)
+                       alpha_min=1.0 / 255.0, use_pallas=True)
     chunk = cfg.chunk
     max_chunks = cfg.max_pairs_per_tile // chunk
     C = 7
+    f32_names = ("composite_fwd", "composite_bwd")
+    bf16_names = ("composite_fwd_bf16", "composite_bwd_bf16")
 
     print("phase 3: forward kernel against its plain version")
     latch_fixture(device)
@@ -404,28 +681,15 @@ def main():
     step_fn = make_gaussian_train_step(scene.opt_cfg, cfg, width=scene.width,
                                        height=scene.height,
                                        active_sh_degree=0, device=device)
-    params, stats, opt_state = scene.params, scene.stats, scene.opt_state
     cams = scene.cams
-    cp.reset_launches()
-    for i in range(3):
-        params, stats, opt_state, metrics, _ = step_fn(
-            params, stats, opt_state, scene.active, cams[i % 4], i + 1)
-    torch.cuda.synchronize()
     n_timed = 20
-    # host marks after each step, unsynchronised: the host runs ahead of the
-    # card only by what the launch queue holds, so their spacing is the
-    # per-step time while the step is host-bound
-    marks = [time.perf_counter()]
-    for i in range(n_timed):
-        params, stats, opt_state, metrics, image = step_fn(
-            params, stats, opt_state, scene.active, cams[i % 4], i + 4)
-        marks.append(time.perf_counter())
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - marks[0]
+    cp.reset_launches()
+    state, metrics, image, ms_step, median_ms = run_steps(
+        step_fn, (scene.params, scene.stats, scene.opt_state), scene.active,
+        lambda i: cams[i % 4], 3, n_timed, 1)
     main_launches = dict(cp.launches)
-    ms_step = dt / n_timed * 1e3
-    median_ms = float(np.median(np.diff(marks))) * 1e3
-    loss = metrics["loss"].item()
+    dt = ms_step * n_timed / 1e3
+    loss = check_step_outputs("train step", state[0], metrics, image, scene)
     print(f"  launches over 23 steps: {main_launches}")
     print(f"  step {ms_step:.3f} ms mean over {n_timed} steps to the final "
           f"synchronize ({n_timed / dt:.3f} it/s), host median {median_ms:.3f} "
@@ -435,21 +699,19 @@ def main():
           f"{metrics['overflow_tiles'].item()}, overflow_capacity "
           f"{metrics['overflow_capacity'].item()}, pairs_demand "
           f"{metrics['pairs_demand'].item()}")
-    if any(v != 23 for v in main_launches.values()):
-        fail(f"expected 23 launches of each kernel, got {main_launches}")
-    if not np.isfinite(loss) or not all(torch.isfinite(p).all() for p in params):
-        fail("non-finite loss or parameters after the train step")
-    if tuple(image.shape) != (scene.height, scene.width, 3):
-        fail(f"image shape {tuple(image.shape)}")
-    profile_steps(step_fn, (params, stats, opt_state), scene)
+    if any(main_launches[k] != 23 for k in f32_names) \
+            or any(main_launches[k] != 0 for k in bf16_names):
+        fail(f"expected 23 launches of each f32 kernel and none of the bf16 "
+             f"ones, got {main_launches}")
+    profile_steps(step_fn, state, scene)
 
     print("phase 6: kernel times at one bench view")
     fwd_args = (geo, feat, starts, counts, grid_w, 16, chunk, max_chunks, C)
     _, trans, tstarts = f_fwd
     cnt = cp.clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
-    bwd_args = (geo, feat, starts, cnt, tstarts, trans,
-                *bwd_cotangents(nt, C, 5, device), grid_w, 16, chunk,
-                max_chunks, C, True)
+    cots = bwd_cotangents(nt, C, 5, device)
+    bwd_args = (geo, feat, starts, cnt, tstarts, trans, *cots, grid_w, 16,
+                chunk, max_chunks, C, True)
     # the shipped kernels and their FMA-contracted builds, timed in turns
     turns = {"": ([], []), FMA: ([], [])}
     for suffix in ("", FMA, FMA, ""):
@@ -490,6 +752,86 @@ def main():
           f"otherwise) {flips}, "
           f"d_geo (max abs, rel L2) {grad_gate(m_geo, p_geo)[1:]}, d_feat "
           f"{grad_gate(m_feat, p_feat)[1:]}")
+    t_phase = time.perf_counter()
+
+    print("phase 7: bf16 feature plane")
+    check_bf16("small 256x256", *s_in[:4], s_fwd, 16, chunk, max_chunks, C, seed=6)
+    bf_fwd_err, bf_bwd_err, b_fwd = check_bf16(
+        "bench view 0", geo, feat, starts, counts, f_fwd, grid_w, chunk,
+        max_chunks, C, seed=7)
+    feat_b = feat.to(torch.bfloat16)
+    bf_fwd_args = (geo, feat_b) + fwd_args[2:]
+    bf_bwd_args = (geo, feat_b) + bwd_args[2:]
+    kb_fwd_ms = cuda_ms(lambda: cp.composite_pairs_fwd_cuda(*bf_fwd_args), 20)
+    kb_bwd_ms = cuda_ms(lambda: cp.composite_pairs_bwd_cuda(*bf_bwd_args), 20)
+    pb_fwd_ms = cuda_ms(lambda: cp.composite_pairs_fwd_plain(*bf_fwd_args), 1)
+    pb_bwd_ms = cuda_ms(lambda: cp.composite_pairs_bwd_plain(*bf_bwd_args), 1)
+    fbb, fbb_by = fwd_bound_ms(counts, chunk, C, fwd_gates, feat_bytes=2)
+    bbb, bbb_by = bwd_bound_ms(cnt, chunk, C, bwd_gates, feat_bytes=2)
+    print(f"  composite_fwd_bf16 {kb_fwd_ms:.4f} ms (plain {pb_fwd_ms:.3f} ms, "
+          f"bound {fbb:.4f} ms by {fbb_by}); composite_bwd_bf16 "
+          f"{kb_bwd_ms:.4f} ms (plain {pb_bwd_ms:.3f} ms, bound {bbb:.4f} ms "
+          f"by {bbb_by})")
+    step_b = make_gaussian_train_step(
+        scene.opt_cfg, dataclasses.replace(cfg, feat_bf16=True),
+        width=scene.width, height=scene.height, active_sh_degree=0,
+        device=device)
+    cp.reset_launches()
+    state_b, metrics_b, image_b, ms_step_b, median_b = run_steps(
+        step_b, (scene.params, scene.stats, scene.opt_state), scene.active,
+        lambda i: cams[i % 4], 3, n_timed, 1)
+    bf16_launches = dict(cp.launches)
+    loss_b = check_step_outputs("bf16 train step", state_b[0], metrics_b,
+                                image_b, scene)
+    print(f"  launches over 23 bf16 steps: {bf16_launches}")
+    if any(bf16_launches[k] != 23 for k in bf16_names) \
+            or any(bf16_launches[k] != 0 for k in f32_names):
+        fail(f"expected 23 launches of each bf16 kernel and none of the f32 "
+             f"ones, got {bf16_launches}")
+    # the two steps again, in turns (f32, bf16, bf16, f32): the step is
+    # host-bound and drifts between runs more than the kernels differ
+    turn_ms = {"f32": [ms_step], "bf16": [ms_step_b]}
+    for name, fn in (("bf16", step_b), ("f32", step_fn)):
+        turn_ms[name].append(run_steps(
+            fn, (scene.params, scene.stats, scene.opt_state), scene.active,
+            lambda i: cams[i % 4], 1, n_timed, 1)[3])
+    print(f"  bf16 step {ms_step_b:.3f} ms mean over {n_timed} steps (host "
+          f"median {median_b:.3f} ms) beside the f32 step of phase 5, "
+          f"{ms_step:.3f} ms (host median {median_ms:.3f} ms); loss "
+          f"{loss_b:.6f} (f32 {loss:.6f}); in turns f32, bf16, bf16, f32: "
+          f"{turn_ms['f32'][0]:.3f}, {turn_ms['bf16'][0]:.3f}, "
+          f"{turn_ms['bf16'][1]:.3f}, {turn_ms['f32'][1]:.3f} ms")
+
+    print("phase 8: view batches")
+    check_batched_against_cpu(cfg)
+    batch = stack_cameras(cams)
+    n_views, n_warm_b, n_timed_b = len(cams), 2, 5
+    cp.reset_launches()
+    state_v, metrics_v, image_v, ms_batch, median_v = run_steps(
+        step_fn, (scene.params, scene.stats, scene.opt_state), scene.active,
+        lambda i: batch, n_warm_b, n_timed_b, 1)
+    batch_launches = dict(cp.launches)
+    loss_v = check_step_outputs("batched train step", state_v[0], metrics_v,
+                                image_v, scene)
+    n_steps_b = n_warm_b + n_timed_b
+    print(f"  launches over {n_steps_b} steps of {n_views} views: "
+          f"{batch_launches}")
+    print(f"  batched step {ms_batch:.3f} ms mean over {n_timed_b} steps "
+          f"({ms_batch / n_views:.3f} ms per view; host median "
+          f"{median_v:.3f} ms); loss {loss_v:.6f}, pairs_demand "
+          f"{metrics_v['pairs_demand'].item()}, overflow_capacity "
+          f"{metrics_v['overflow_capacity'].item()}")
+    if any(batch_launches[k] != n_views * n_steps_b for k in f32_names):
+        fail(f"expected {n_views} launches of each kernel per batched step, "
+             f"got {batch_launches} over {n_steps_b} steps")
+
+    print("phase 9: kernel path against the XLA path "
+          "(scripts/tpu_parity_check.py)")
+    parity_kernel_vs_xla(device)
+
+    print("phase 10: precision probe")
+    probe_entry = check_probe(device)
+    print(f"  phases 7-10: {time.perf_counter() - t_phase:.1f} s")
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -503,10 +845,25 @@ def main():
          "launches": main_launches["composite_bwd"], "max_abs_err": bwd_err,
          "ms": k_bwd_ms, "plain_ms": p_bwd_ms, "bound_ms": bb,
          "bound_by": bb_by, "library_ms": None},
+        {"name": "composite_fwd_bf16", "route": "cuda",
+         "source": src + "composite_fwd.cu",
+         "replaces": "hairgs_tpu/render/pallas_composite.py:153",
+         "launches": bf16_launches["composite_fwd_bf16"],
+         "max_abs_err": bf_fwd_err, "ms": kb_fwd_ms, "plain_ms": pb_fwd_ms,
+         "bound_ms": fbb, "bound_by": fbb_by, "library_ms": None},
+        {"name": "composite_bwd_bf16", "route": "cuda",
+         "source": src + "composite_bwd.cu",
+         "replaces": "hairgs_tpu/render/pallas_composite.py:272",
+         "launches": bf16_launches["composite_bwd_bf16"],
+         "max_abs_err": bf_bwd_err, "ms": kb_bwd_ms, "plain_ms": pb_bwd_ms,
+         "bound_ms": bbb, "bound_by": bbb_by, "library_ms": None},
+        probe_entry,
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"step_ms": ms_step, "it_per_s": n_timed / dt,
-                      "host_median_step_ms": median_ms, "card": smi}))
+                      "host_median_step_ms": median_ms,
+                      "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
+                      "card": smi}))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -100,3 +100,19 @@ def make_camera(R, t, fovx, fovy, image=None, mask=None, orientation=None,
         orientation=_f32(orientation, dev),
         confidence=_f32(confidence, dev),
     )
+
+
+def stack_cameras(cams) -> Camera:
+    """A batched Camera from a list of Cameras: every tensor gains a leading
+    view axis B. A field that is None in any camera is None in the batch."""
+    def _stack(*xs):
+        if any(x is None for x in xs):
+            return None
+        return torch.stack(xs)
+
+    return Camera(*[_stack(*fields) for fields in zip(*cams)])
+
+
+def camera_view(camera: Camera, b: int) -> Camera:
+    """View b of a batched Camera."""
+    return Camera(*[None if x is None else x[b] for x in camera])

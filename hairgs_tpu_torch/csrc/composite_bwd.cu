@@ -17,6 +17,13 @@
 // cotangent alone, which yields the viewspace gradients of the aux rows.
 // The 0.99 alpha clamp is ignored in the gradient, as the reference does.
 //
+// Feature plane: float or __nv_bfloat16 (`composite_bwd_bf16`). A bf16
+// feature is widened to fp32 when it is staged; every sum stays fp32, and
+// d_feat is written in the plane's dtype: each slot's fp32 block sum is
+// rounded once, to nearest-even (__float2bfloat16_rn), as JAX rounds when it
+// stores to the bf16 plane (pallas_composite.py:432-434). Rounding partial
+// sums instead would compound the error.
+//
 // Each pair's 8 geometry gradients and C feature gradients are summed over
 // the 256 pixels inside the block: a warp-shuffle tree per warp (skipped
 // when no lane of the warp touched the pair), the 8 warp partials parked in
@@ -27,11 +34,13 @@
 // Bound: every (pair, pixel) of a tile's list costs about 16 fp32
 // operations in the alpha gates, and one that passes them about 100 more
 // with STATS (the gradients, both carries and the pixel sums), against
-// 4 * (6 + C) bytes read and 4 * (8 + C) written per pair and the per-pixel
+// 4 * 6 + 4 * C (f32) or 2 * C (bf16) bytes read and 4 * 8 + 4 * C or 2 * C
+// written per pair and the per-pixel
 // cotangents, so at bench width the work is bound by operations
 // (chip_smoke.py computes the bound). The kernel spends more than that: the
 // warp-shuffle tree costs 5 steps per value and warp where the sum needs 1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,16 +51,24 @@ constexpr int WARPS = PIX / 32;
 constexpr float T_EPS = 1e-4f;
 constexpr float ALPHA_MAX = 0.99f;
 
-template <int C, bool STATS>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename TF> __device__ __forceinline__ TF from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int C, bool STATS, typename TF>
 __global__ void __launch_bounds__(PIX)
-composite_bwd_kernel(const float* __restrict__ geo, const float* __restrict__ feat,
+composite_bwd_kernel(const float* __restrict__ geo, const TF* __restrict__ feat,
                      const int* __restrict__ starts, const int* __restrict__ counts,
                      const float* __restrict__ tstarts,
                      const float* __restrict__ trans_final,
                      const float* __restrict__ g_out,
                      const float* __restrict__ g_photo,
                      const float* __restrict__ g_trans, float* __restrict__ d_geo,
-                     float* __restrict__ d_feat, long long p_pad, int grid_w,
+                     TF* __restrict__ d_feat, long long p_pad, int grid_w,
                      int chunk, int max_chunks, float alpha_min) {
   constexpr int NV = 8 + C;  // reduced values per pair
   extern __shared__ float smem[];
@@ -87,7 +104,8 @@ composite_bwd_kernel(const float* __restrict__ geo, const float* __restrict__ fe
 #pragma unroll
       for (int r = 0; r < 6; ++r) s_geo[r * chunk + i] = geo[r * p_pad + base + i];
 #pragma unroll
-      for (int c = 0; c < C; ++c) s_feat[c * chunk + i] = feat[c * p_pad + base + i];
+      for (int c = 0; c < C; ++c)
+        s_feat[c * chunk + i] = to_f32(feat[c * p_pad + base + i]);
     }
     __syncthreads();
 
@@ -189,16 +207,16 @@ composite_bwd_kernel(const float* __restrict__ geo, const float* __restrict__ fe
       if (i < 8)
         d_geo[i * p_pad + base + k] = s;
       else
-        d_feat[(i - 8) * p_pad + base + k] = s;
+        d_feat[(i - 8) * p_pad + base + k] = from_f32<TF>(s);
     }
   }
 }
 
-template <int C, bool STATS>
-cudaError_t launch(const float* geo, const float* feat, const int* starts,
+template <int C, bool STATS, typename TF>
+cudaError_t launch(const float* geo, const TF* feat, const int* starts,
                    const int* counts, const float* tstarts, const float* trans,
                    const float* g_out, const float* g_photo, const float* g_trans,
-                   float* d_geo, float* d_feat, int num_tiles, long long p_pad,
+                   float* d_geo, TF* d_feat, int num_tiles, long long p_pad,
                    int grid_w, int chunk, int max_chunks, float alpha_min,
                    cudaStream_t stream) {
   const size_t smem =
@@ -206,46 +224,38 @@ cudaError_t launch(const float* geo, const float* feat, const int* starts,
       sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel<C, STATS>,
+        composite_bwd_kernel<C, STATS, TF>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  composite_bwd_kernel<C, STATS><<<num_tiles, PIX, smem, stream>>>(
+  composite_bwd_kernel<C, STATS, TF><<<num_tiles, PIX, smem, stream>>>(
       geo, feat, starts, counts, tstarts, trans, g_out, g_photo, g_trans, d_geo,
       d_feat, p_pad, grid_w, chunk, max_chunks, alpha_min);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Inputs as the forward's, plus tstarts (num_tiles * max_chunks, 256), the
-// final transmittance (num_tiles, 256), g_out (the total-loss cotangent) and
-// g_photo (the photometric one), both (num_tiles, 256, num_channels), and
-// g_trans (num_tiles, 256). counts must already be clamped to the chunks the
-// forward ran. d_geo (8, p_pad) and d_feat (c_pad, p_pad) are zero-filled by
-// the caller; each tile writes its own slots. Returns the launch's CUDA error.
-extern "C" int composite_bwd(const float* geo, const float* feat,
-                             const int* starts, const int* counts,
-                             const float* tstarts, const float* trans,
-                             const float* g_out, const float* g_photo,
-                             const float* g_trans, float* d_geo, float* d_feat,
-                             int num_tiles, int p_pad, int grid_w, int chunk,
-                             int max_chunks, int num_channels, int c_pad,
-                             int with_stats, float alpha_min, void* stream) {
+template <typename TF>
+int dispatch(const float* geo, const TF* feat, const int* starts,
+             const int* counts, const float* tstarts, const float* trans,
+             const float* g_out, const float* g_photo, const float* g_trans,
+             float* d_geo, TF* d_feat, int num_tiles, int p_pad, int grid_w,
+             int chunk, int max_chunks, int num_channels, int c_pad,
+             int with_stats, float alpha_min, void* stream) {
   if (num_tiles == 0) return 0;
   if (num_channels > c_pad) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define COMPOSITE_BWD_CASE(C)                                                   \
-  case C:                                                                       \
-    return static_cast<int>(                                                    \
-        with_stats ? launch<C, true>(geo, feat, starts, counts, tstarts, trans, \
-                                     g_out, g_photo, g_trans, d_geo, d_feat,    \
-                                     num_tiles, p_pad, grid_w, chunk,           \
-                                     max_chunks, alpha_min, s)                  \
-                   : launch<C, false>(geo, feat, starts, counts, tstarts,       \
-                                      trans, g_out, g_photo, g_trans, d_geo,    \
-                                      d_feat, num_tiles, p_pad, grid_w, chunk,  \
-                                      max_chunks, alpha_min, s));
+#define COMPOSITE_BWD_CASE(C)                                                  \
+  case C:                                                                      \
+    return static_cast<int>(                                                   \
+        with_stats                                                             \
+            ? launch<C, true, TF>(geo, feat, starts, counts, tstarts, trans,   \
+                                  g_out, g_photo, g_trans, d_geo, d_feat,      \
+                                  num_tiles, p_pad, grid_w, chunk, max_chunks, \
+                                  alpha_min, s)                                \
+            : launch<C, false, TF>(geo, feat, starts, counts, tstarts, trans,  \
+                                   g_out, g_photo, g_trans, d_geo, d_feat,     \
+                                   num_tiles, p_pad, grid_w, chunk,            \
+                                   max_chunks, alpha_min, s));
   switch (num_channels) {
     COMPOSITE_BWD_CASE(1)
     COMPOSITE_BWD_CASE(2)
@@ -259,4 +269,44 @@ extern "C" int composite_bwd(const float* geo, const float* feat,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef COMPOSITE_BWD_CASE
+}
+
+}  // namespace
+
+// Inputs as the forward's, plus tstarts (num_tiles * max_chunks, 256), the
+// final transmittance (num_tiles, 256), g_out (the total-loss cotangent) and
+// g_photo (the photometric one), both (num_tiles, 256, num_channels), and
+// g_trans (num_tiles, 256), all f32. counts must already be clamped to the
+// chunks the forward ran. d_geo (8, p_pad) f32 and d_feat (c_pad, p_pad), in
+// the feature dtype (f32 for composite_bwd, bf16 for composite_bwd_bf16),
+// are zero-filled by the caller; each tile writes its own slots. Returns the
+// launch's CUDA error.
+extern "C" int composite_bwd(const float* geo, const float* feat,
+                             const int* starts, const int* counts,
+                             const float* tstarts, const float* trans,
+                             const float* g_out, const float* g_photo,
+                             const float* g_trans, float* d_geo, float* d_feat,
+                             int num_tiles, int p_pad, int grid_w, int chunk,
+                             int max_chunks, int num_channels, int c_pad,
+                             int with_stats, float alpha_min, void* stream) {
+  return dispatch(geo, feat, starts, counts, tstarts, trans, g_out, g_photo,
+                  g_trans, d_geo, d_feat, num_tiles, p_pad, grid_w, chunk,
+                  max_chunks, num_channels, c_pad, with_stats, alpha_min,
+                  stream);
+}
+
+extern "C" int composite_bwd_bf16(const float* geo, const __nv_bfloat16* feat,
+                                  const int* starts, const int* counts,
+                                  const float* tstarts, const float* trans,
+                                  const float* g_out, const float* g_photo,
+                                  const float* g_trans, float* d_geo,
+                                  __nv_bfloat16* d_feat, int num_tiles,
+                                  int p_pad, int grid_w, int chunk,
+                                  int max_chunks, int num_channels, int c_pad,
+                                  int with_stats, float alpha_min,
+                                  void* stream) {
+  return dispatch(geo, feat, starts, counts, tstarts, trans, g_out, g_photo,
+                  g_trans, d_geo, d_feat, num_tiles, p_pad, grid_w, chunk,
+                  max_chunks, num_channels, c_pad, with_stats, alpha_min,
+                  stream);
 }

@@ -18,6 +18,12 @@
 // starts again at the next chunk. The transmittance at the start of every
 // chunk j < nchunks is written to `tstarts` for the backward.
 //
+// Feature plane: float or __nv_bfloat16 (`composite_fwd_bf16`, the
+// counterpart of RasterConfig.feat_bf16). A bf16 feature is widened to fp32
+// when it is staged in shared memory, so shared memory and every sum stay
+// fp32; the gates, alpha and T touch no feature, so T and tstarts of a bf16
+// plane equal those of the f32 plane bit for bit.
+//
 // Arithmetic: fp32, products taken in slot order, T multiplied by (1-alpha)
 // step by step. The reference forms the same product as
 // exp(cumsum(log1p(-alpha))); the two differ in rounding only. The library
@@ -27,10 +33,11 @@
 //
 // Bound: every (pair, pixel) of a tile's list costs about 16 fp32
 // operations in the alpha gates, and one that passes them about 19 more,
-// against 4 * (6 + C) bytes read per pair and 4 * (C + 1) bytes written per
-// pixel, so at bench width the work is bound by operations (chip_smoke.py
+// against 4 * 6 + 4 * C (f32) or 2 * C (bf16) bytes read per pair and
+// 4 * (C + 1) bytes written per pixel, so at bench width the work is bound by operations (chip_smoke.py
 // computes the bound from each view's own counts).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -40,9 +47,12 @@ constexpr int PIX = TILE * TILE;
 constexpr float T_EPS = 1e-4f;
 constexpr float ALPHA_MAX = 0.99f;
 
-template <int C>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int C, typename TF>
 __global__ void __launch_bounds__(PIX)
-composite_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ feat,
+composite_fwd_kernel(const float* __restrict__ geo, const TF* __restrict__ feat,
                      const int* __restrict__ starts, const int* __restrict__ counts,
                      float* __restrict__ out, float* __restrict__ trans_out,
                      float* __restrict__ tstarts, long long p_pad, int grid_w,
@@ -75,7 +85,8 @@ composite_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ fe
 #pragma unroll
       for (int r = 0; r < 6; ++r) s_geo[r * chunk + i] = geo[r * p_pad + base + i];
 #pragma unroll
-      for (int c = 0; c < C; ++c) s_feat[c * chunk + i] = feat[c * p_pad + base + i];
+      for (int c = 0; c < C; ++c)
+        s_feat[c * chunk + i] = to_f32(feat[c * p_pad + base + i]);
     }
     __syncthreads();
 
@@ -107,44 +118,38 @@ composite_fwd_kernel(const float* __restrict__ geo, const float* __restrict__ fe
   trans_out[o] = T;
 }
 
-template <int C>
-cudaError_t launch(const float* geo, const float* feat, const int* starts,
+template <int C, typename TF>
+cudaError_t launch(const float* geo, const TF* feat, const int* starts,
                    const int* counts, float* out, float* trans, float* tstarts,
                    int num_tiles, long long p_pad, int grid_w, int chunk,
                    int max_chunks, float alpha_min, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(6 + C) * chunk * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        composite_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        composite_fwd_kernel<C, TF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  composite_fwd_kernel<C><<<num_tiles, PIX, smem, stream>>>(
+  composite_fwd_kernel<C, TF><<<num_tiles, PIX, smem, stream>>>(
       geo, feat, starts, counts, out, trans, tstarts, p_pad, grid_w, chunk,
       max_chunks, alpha_min);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// geo (8, p_pad) and feat (c_pad, p_pad) row-major f32; starts, counts
-// (num_tiles,) int32. out (num_tiles, 256, num_channels), trans
-// (num_tiles, 256), tstarts (num_tiles * max_chunks, 256), the latter
-// zero-filled by the caller. Returns the CUDA error of the launch (0 = ok).
-extern "C" int composite_fwd(const float* geo, const float* feat,
-                             const int* starts, const int* counts, float* out,
-                             float* trans, float* tstarts, int num_tiles,
-                             int p_pad, int grid_w, int chunk, int max_chunks,
-                             int num_channels, int c_pad, float alpha_min,
-                             void* stream) {
+template <typename TF>
+int dispatch(const float* geo, const TF* feat, const int* starts,
+             const int* counts, float* out, float* trans, float* tstarts,
+             int num_tiles, int p_pad, int grid_w, int chunk, int max_chunks,
+             int num_channels, int c_pad, float alpha_min, void* stream) {
   if (num_tiles == 0) return 0;
   if (num_channels > c_pad) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define COMPOSITE_FWD_CASE(C)                                                  \
   case C:                                                                      \
-    return static_cast<int>(launch<C>(geo, feat, starts, counts, out, trans,   \
-                                      tstarts, num_tiles, p_pad, grid_w,       \
-                                      chunk, max_chunks, alpha_min, s));
+    return static_cast<int>(launch<C, TF>(geo, feat, starts, counts, out,      \
+                                          trans, tstarts, num_tiles, p_pad,    \
+                                          grid_w, chunk, max_chunks,           \
+                                          alpha_min, s));
   switch (num_channels) {
     COMPOSITE_FWD_CASE(1)
     COMPOSITE_FWD_CASE(2)
@@ -158,4 +163,34 @@ extern "C" int composite_fwd(const float* geo, const float* feat,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef COMPOSITE_FWD_CASE
+}
+
+}  // namespace
+
+// geo (8, p_pad) row-major f32 and feat (c_pad, p_pad) row-major, f32
+// (composite_fwd) or bf16 (composite_fwd_bf16); starts, counts
+// (num_tiles,) int32. out (num_tiles, 256, num_channels), trans
+// (num_tiles, 256), tstarts (num_tiles * max_chunks, 256), all f32, the
+// latter zero-filled by the caller. Returns the CUDA error of the launch
+// (0 = ok).
+extern "C" int composite_fwd(const float* geo, const float* feat,
+                             const int* starts, const int* counts, float* out,
+                             float* trans, float* tstarts, int num_tiles,
+                             int p_pad, int grid_w, int chunk, int max_chunks,
+                             int num_channels, int c_pad, float alpha_min,
+                             void* stream) {
+  return dispatch(geo, feat, starts, counts, out, trans, tstarts, num_tiles,
+                  p_pad, grid_w, chunk, max_chunks, num_channels, c_pad,
+                  alpha_min, stream);
+}
+
+extern "C" int composite_fwd_bf16(const float* geo, const __nv_bfloat16* feat,
+                                  const int* starts, const int* counts,
+                                  float* out, float* trans, float* tstarts,
+                                  int num_tiles, int p_pad, int grid_w,
+                                  int chunk, int max_chunks, int num_channels,
+                                  int c_pad, float alpha_min, void* stream) {
+  return dispatch(geo, feat, starts, counts, out, trans, tstarts, num_tiles,
+                  p_pad, grid_w, chunk, max_chunks, num_channels, c_pad,
+                  alpha_min, stream);
 }

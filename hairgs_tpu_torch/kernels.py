@@ -18,7 +18,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNELS = ("composite_fwd", "composite_bwd")
+KERNELS = ("composite_fwd", "composite_bwd", "precision_probe")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,11 +1,13 @@
-"""Sort-based (Gaussian, tile) pair binning into the chunk-aligned paged
-pair table (counterpart of the sorted path of hairgs_tpu/render/binning.py).
+"""Sort-based (Gaussian, tile) pair binning (counterpart of
+hairgs_tpu/render/binning.py): the chunk-aligned paged pair table of the
+kernel path (`bin_gaussians_sorted`) and the dense per-tile table of the
+XLA path (`bin_gaussians`).
 
 Every Gaussian gets a fixed budget of `max_tiles_per_gaussian` (tile, depth)
-slots; one stable sort over the fused int32 [tile | quantized depth] key
-orders all slots; per-tile ranges come from `searchsorted`; each tile's list
-is padded to a multiple of the compositor chunk, so every tile owns its page
-and the backward writes per-slot gradients with no atomics.
+slots; one stable sort over the fused [tile | quantized depth] key orders
+all slots; per-tile ranges come from `searchsorted`. In the paged table each
+tile's list is padded to a multiple of the compositor chunk, so every tile
+owns its page and the backward writes per-slot gradients with no atomics.
 
 The JAX package's scatters drop out-of-range indices (`mode="drop"`) and its
 `searchsorted` returns P for trailing empty tiles; torch raises on such
@@ -239,6 +241,57 @@ def bin_gaussians_sorted(rect, depth, valid, grid_w: int, grid_h: int,
         counts=counts, overflow_pairs=overflow_pairs,
         overflow_tiles=overflow_tiles, overflow_capacity=overflow_capacity,
         pairs_demand=pairs_demand)
+
+
+class Binning(NamedTuple):
+    """Dense per-tile layout of the XLA path (`composite`)."""
+
+    gather_idx: torch.Tensor  # (num_tiles, K) int32 Gaussian indices
+    pair_valid: torch.Tensor  # (num_tiles, K) bool
+    tile_counts: torch.Tensor  # (num_tiles,) int32 true counts (untruncated)
+    overflow_pairs: torch.Tensor  # () int32 dropped by per-gaussian budget
+    overflow_tiles: torch.Tensor  # () int32 beyond max_pairs_per_tile
+
+
+def bin_gaussians(rect, depth, valid, grid_w: int, grid_h: int,
+                  max_tiles_per_gaussian: int, max_pairs_per_tile: int,
+                  xy=None, conic=None, q_cut=None,
+                  tile_size: int = 16) -> Binning:
+    """Sort-based binning into a dense (num_tiles, max_pairs_per_tile)
+    table: each tile's list in [tile | quantized depth] order, the nearest
+    max_pairs_per_tile kept. Same contract and integer results as the JAX
+    function (hairgs_tpu/render/binning.py:417-471)."""
+    dev = rect.device
+    n = rect.shape[0]
+    r_max = max_tiles_per_gaussian
+    num_tiles = grid_w * grid_h
+
+    tile, overflow_pairs = _expand_pairs(
+        rect, valid, grid_w, grid_h, r_max,
+        xy=xy, conic=conic, q_cut=q_cut, tile_size=tile_size)
+    dq, levels = _quantize_depth(depth, num_tiles)
+    # the JAX sort is stable and lexicographic on (tile, dq) over the
+    # Gaussian-major flat order; dq < levels + 1, so one stable sort of the
+    # fused key gives the same order. int64: no width to check
+    key = tile.to(torch.int64) * (levels + 1) + dq.to(torch.int64)[:, None]
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    sorted_tile = torch.div(sorted_key, levels + 1, rounding_mode="floor")
+    sorted_gid = torch.div(perm, r_max, rounding_mode="floor").to(torch.int32)
+
+    tile_ids = torch.arange(num_tiles, dtype=sorted_tile.dtype, device=dev)
+    starts = torch.searchsorted(sorted_tile, tile_ids, side="left").to(torch.int32)
+    ends = torch.searchsorted(sorted_tile, tile_ids, side="right").to(torch.int32)
+    counts = ends - starts
+
+    k = torch.arange(max_pairs_per_tile, dtype=torch.int32, device=dev)
+    idx = torch.clamp(starts[:, None] + k[None, :], 0, n * r_max - 1)
+    gather_idx = sorted_gid[idx.long()]
+    pair_valid = k[None, :] < torch.clamp(counts, max=max_pairs_per_tile)[:, None]
+    overflow_tiles = torch.sum(torch.clamp(counts - max_pairs_per_tile, min=0),
+                               dtype=torch.int32)
+    return Binning(gather_idx=gather_idx, pair_valid=pair_valid,
+                   tile_counts=counts, overflow_pairs=overflow_pairs,
+                   overflow_tiles=overflow_tiles)
 
 
 class _GatherPairs(torch.autograd.Function):

@@ -17,10 +17,19 @@ chunk stays >= T_EPS; at the chunk's end T is multiplied by the live pairs'
 chunk from its frozen T. `chunk` is therefore part of the function, not only
 a schedule.
 
+The feature plane is float32 or bfloat16 (`RasterConfig.feat_bf16`, as in
+pallas_composite.py:103-113): a bf16 feature is widened to float32 where it
+is read and every sum stays float32; the backward writes d_feat in the
+plane's dtype, each slot's float32 sum rounded once to nearest-even. The
+gates, alpha, T and the latch touch no feature, so T and `tstarts` of a
+bf16 plane equal those of the f32 plane bit for bit.
+
 On a CUDA tensor each pass launches its hand-written kernel
-(csrc/composite_fwd.cu, csrc/composite_bwd.cu) or raises; on a CPU tensor it
-runs the plain PyTorch version below, which walks the slots in the same
-order with the same float32 operations.
+(csrc/composite_fwd.cu, csrc/composite_bwd.cu; one C entry point per
+feature dtype) or raises; on a CPU tensor it runs the plain PyTorch version
+below, which walks the slots in the same order with the same float32
+operations, the pixel sums of the backward included, so on the card the
+two agree bit for bit.
 """
 
 import ctypes
@@ -34,10 +43,14 @@ T_EPS = 1e-4
 ALPHA_MAX = 0.99
 GEO_ROWS = 8  # x, y, a, b, c, opacity, aux0, aux1
 KERNEL_TILE = 16  # the kernels run one thread per pixel of a 16x16 tile
+WARP = 32
 MAX_KERNEL_CHANNELS = 8
+FEAT_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
-# launches of each hand-written kernel; a wrapper adds one where it launches
-launches = {"composite_fwd": 0, "composite_bwd": 0}
+# launches of each hand-written kernel, per feature dtype; a wrapper adds
+# one where it launches
+launches = {"composite_fwd": 0, "composite_bwd": 0,
+            "composite_fwd_bf16": 0, "composite_bwd_bf16": 0}
 
 
 def reset_launches():
@@ -56,24 +69,14 @@ def pack_geo_rows(xy, conic, opacity, aux=None):
 
 
 def pad_feat_rows(features, feat_bf16: bool):
-    """Feature plane (N, C_pad), C padded up to a multiple of 8."""
-    if feat_bf16:
-        raise NotImplementedError(
-            "feat_bf16 (a bf16 feature plane) is not ported yet")
+    """Feature plane (N, C_pad), C padded up to a multiple of 8, cast to
+    bf16 when asked (8 bf16 values are 16 bytes)."""
     pad = (-features.shape[1]) % 8
     if pad:
         features = torch.nn.functional.pad(features, (0, pad))
+    if feat_bf16:
+        features = features.to(torch.bfloat16)
     return features
-
-
-def assemble_image(tiles, grid_w: int, grid_h: int, tile_size: int,
-                   height: int, width: int):
-    """(NT, P, ...) tile-major pixels -> (H, W, ...) image (cropped)."""
-    trailing = tiles.shape[2:]
-    img = tiles.reshape(grid_h, grid_w, tile_size, tile_size, *trailing)
-    img = img.transpose(1, 2)
-    img = img.reshape(grid_h * tile_size, grid_w * tile_size, *trailing)
-    return img[:height, :width]
 
 
 # ---------------------------------------------------------------- plain
@@ -141,7 +144,7 @@ def composite_pairs_fwd_plain(geo, feat, starts, counts, grid_w, tile_size,
             t_next = t_run * (1.0 - alpha)
             alive = alive & (t_next >= T_EPS)
             w = torch.where(alive, alpha * t_run, torch.zeros_like(alpha))
-            f = feat[:num_channels, slot].T  # (NT, C)
+            f = feat[:num_channels, slot].T.to(torch.float32)  # (NT, C)
             acc = acc + w[..., None] * f[:, None, :]
             t_run = torch.where(alive, t_next, t_run)
         T = t_run
@@ -157,7 +160,13 @@ def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, trans,
     the forward ran. g_out is the total-loss cotangent (NT, PIX, C), g_photo
     the photometric-only one (read only with_stats), g_trans (NT, PIX).
     Returns d_geo (8, P_pad) [dx, dy, da, db, dc, dopa, dx2, dy2] and d_feat
-    (C_pad, P_pad), each slot written by its own tile."""
+    (C_pad, P_pad) in the feature plane's dtype, each slot written by its
+    own tile.
+
+    The arithmetic is the kernel's, step for step: the transmittance before
+    a pair is recovered by dividing by (1 - alpha) on the way back, f . g
+    is summed channel by channel, and the 256 pixels of a tile are summed
+    as the kernel sums them (`_block_sum`)."""
     dev = geo.device
     nt = starts.shape[0]
     pix = tile_size * tile_size
@@ -176,69 +185,87 @@ def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, trans,
     for j in reversed(range(n_chunks)):
         act = j < nch
         n_slots = _slots_in_chunk(counts_host, j, chunk)
-        # front-to-back pass: the transmittance before each slot and the
-        # latch, as the forward had them
-        t_run = ts[:, j]
+        # forward again from the chunk's start: the latch at each slot and
+        # the transmittance after the last live pair
+        t_cur = ts[:, j]
         alive = act[:, None].expand(nt, pix)
-        before = []
+        alive_at = []
         for k in range(n_slots):
             pos = j * chunk + k
             inmask = act & (pos < counts)
             slot = torch.clamp(starts + pos, max=p_pad - 1).long()
             alpha, *_ = _slot_quantities(geo, slot, inmask, px, py, alpha_min)
-            t_next = t_run * (1.0 - alpha)
+            t_next = t_cur * (1.0 - alpha)
             alive = alive & (t_next >= T_EPS)
-            before.append((t_run, alive))
-            t_run = torch.where(alive, t_next, t_run)
+            alive_at.append(alive)
+            t_cur = torch.where(alive, t_next, t_cur)
         for k in reversed(range(n_slots)):
             pos = j * chunk + k
             inmask = act & (pos < counts)
             slot = torch.clamp(starts + pos, max=p_pad - 1).long()
             alpha, G, ok, dx, dy, a, b, c, opa = _slot_quantities(
                 geo, slot, inmask, px, py, alpha_min)
-            t_excl, alive = before[k]
-            use = alive & ok
-            w = torch.where(use, alpha * t_excl, zero)
-            f = feat[:num_channels, slot].T  # (NT, C)
+            use = alive_at[k] & ok
             one_minus = 1.0 - alpha
+            t_excl = torch.where(use, t_cur / one_minus, t_cur)
+            w = torch.where(use, alpha * t_excl, zero)
+            f = feat[:num_channels, slot].T.to(torch.float32)  # (NT, C)
 
             def geo_grads(g, carry):
-                fdotg = torch.sum(g * f[:, None, :], dim=2)
+                fdotg = g[:, :, 0] * f[:, None, 0]
+                for ch in range(1, num_channels):
+                    fdotg = fdotg + g[:, :, ch] * f[:, None, ch]
                 dalpha = torch.where(use, t_excl * fdotg - carry / one_minus, zero)
                 dpower = torch.where(use, opa * G * dalpha, zero)
                 return fdotg, dalpha, dpower
 
             fdotg, dalpha, dpower = geo_grads(g_out, carry)
             rows = [
-                torch.sum(dpower * (-(a * dx + b * dy)), dim=1),
-                torch.sum(dpower * (-(c * dy + b * dx)), dim=1),
-                torch.sum(dpower * (-0.5 * dx * dx), dim=1),
-                torch.sum(dpower * (-dx * dy), dim=1),
-                torch.sum(dpower * (-0.5 * dy * dy), dim=1),
-                torch.sum(torch.where(use, G * dalpha, zero), dim=1),
+                dpower * (-(a * dx + b * dy)),
+                dpower * (-(c * dy + b * dx)),
+                dpower * (-0.5 * dx * dx),
+                dpower * (-dx * dy),
+                dpower * (-0.5 * dy * dy),
+                torch.where(use, G * dalpha, zero),
             ]
             carry = carry + w * fdotg
             if with_stats:
                 fdotg2, _, dpower2 = geo_grads(g_photo, carry2)
-                rows += [
-                    torch.sum(dpower2 * (-(a * dx + b * dy)), dim=1),
-                    torch.sum(dpower2 * (-(c * dy + b * dx)), dim=1),
-                ]
+                rows += [dpower2 * (-(a * dx + b * dy)),
+                         dpower2 * (-(c * dy + b * dx))]
                 carry2 = carry2 + w * fdotg2
             else:
-                rows += [torch.zeros(nt, device=dev)] * 2
-            d_f = torch.sum(g_out * w[..., None], dim=1)  # (NT, C)
+                rows += [torch.zeros_like(dpower)] * 2
+            rows = _block_sum(torch.stack(rows, dim=2))  # (NT, 8)
+            d_f = _block_sum(g_out * w[..., None])  # (NT, C)
+            t_cur = t_excl
             sel = slot[inmask]
-            d_geo[:, sel] = torch.stack(rows)[:, inmask]
-            d_feat[:num_channels, sel] = d_f.T[:, inmask]
+            d_geo[:, sel] = rows.T[:, inmask]
+            d_feat[:num_channels, sel] = d_f.T[:, inmask].to(d_feat.dtype)
     return d_geo, d_feat
+
+
+def _block_sum(v):
+    """Sum over the pixel axis (axis 1, 256 pixels) in the backward
+    kernel's order: a butterfly over the 32 lanes of each warp (lane 0's
+    value of the xor-shuffle tree), then the 8 warp partials added in turn
+    to 0."""
+    x = v.reshape(v.shape[0], v.shape[1] // WARP, WARP, *v.shape[2:])
+    half = WARP // 2
+    while half:
+        x = x[:, :, :half] + x[:, :, half:2 * half]
+        half //= 2
+    s = torch.zeros_like(x[:, 0, 0])
+    for w in range(x.shape[1]):
+        s = s + x[:, w, 0]
+    return s
 
 
 # ---------------------------------------------------------------- kernels
 
 
-def _c_function(name, n_ptr, n_int, n_float):
-    lib = kernels.load(name)
+def _c_function(lib_name, name, n_ptr, n_int, n_float):
+    lib = kernels.load(lib_name)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -268,22 +295,27 @@ def _check_common(geo, feat, starts, counts, tile_size, num_channels):
     p_pad = geo.shape[1]
     nt = starts.shape[0]
     _check(geo, "geo_rows", (GEO_ROWS, p_pad), torch.float32, dev)
-    _check(feat, "feat_rows", (feat.shape[0], p_pad), torch.float32, dev)
+    if feat.dtype not in FEAT_DTYPES:
+        raise ValueError(f"feat_rows: float32 or bfloat16, got {feat.dtype}")
+    _check(feat, "feat_rows", (feat.shape[0], p_pad), feat.dtype, dev)
     if feat.shape[0] < num_channels:
         raise ValueError("feat_rows has fewer rows than num_channels")
     _check(starts, "starts", (nt,), torch.int32, dev)
     _check(counts, "counts", (nt,), torch.int32, dev)
-    return dev, nt, p_pad
+    return dev, nt, p_pad, FEAT_DTYPES[feat.dtype]
 
 
 def composite_pairs_fwd_cuda(geo, feat, starts, counts, grid_w, tile_size,
                              chunk, max_chunks, num_channels,
                              alpha_min=ALPHA_MIN):
-    """Launches csrc/composite_fwd.cu; same contract as the plain forward."""
-    dev, nt, p_pad = _check_common(geo, feat, starts, counts, tile_size,
-                                   num_channels)
+    """Launches csrc/composite_fwd.cu (entry point composite_fwd or
+    composite_fwd_bf16, by the feature dtype); same contract as the plain
+    forward."""
+    dev, nt, p_pad, suffix = _check_common(geo, feat, starts, counts,
+                                           tile_size, num_channels)
     pix = tile_size * tile_size
-    fn = _c_function("composite_fwd", 7, 7, 1)
+    name = "composite_fwd" + suffix
+    fn = _c_function("composite_fwd", name, 7, 7, 1)
     out = torch.empty((nt, pix, num_channels), dtype=torch.float32, device=dev)
     trans = torch.empty((nt, pix), dtype=torch.float32, device=dev)
     tstarts = torch.zeros((nt * max_chunks, pix), dtype=torch.float32, device=dev)
@@ -293,8 +325,8 @@ def composite_pairs_fwd_cuda(geo, feat, starts, counts, grid_w, tile_size,
              num_channels, feat.shape[0], alpha_min,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
-    launches["composite_fwd"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
     return out, trans, tstarts
 
 
@@ -302,16 +334,19 @@ def composite_pairs_bwd_cuda(geo, feat, starts, counts, tstarts, trans,
                              g_out, g_photo, g_trans, grid_w, tile_size,
                              chunk, max_chunks, num_channels, with_stats,
                              alpha_min=ALPHA_MIN):
-    """Launches csrc/composite_bwd.cu; same contract as the plain backward."""
-    dev, nt, p_pad = _check_common(geo, feat, starts, counts, tile_size,
-                                   num_channels)
+    """Launches csrc/composite_bwd.cu (entry point composite_bwd or
+    composite_bwd_bf16); same contract as the plain backward. d_feat has
+    the feature plane's dtype."""
+    dev, nt, p_pad, suffix = _check_common(geo, feat, starts, counts,
+                                           tile_size, num_channels)
     pix = tile_size * tile_size
     _check(tstarts, "tstarts", (nt * max_chunks, pix), torch.float32, dev)
     _check(trans, "trans", (nt, pix), torch.float32, dev)
     _check(g_out, "g_out", (nt, pix, num_channels), torch.float32, dev)
     _check(g_photo, "g_photo", (nt, pix, num_channels), torch.float32, dev)
     _check(g_trans, "g_trans", (nt, pix), torch.float32, dev)
-    fn = _c_function("composite_bwd", 11, 8, 1)
+    name = "composite_bwd" + suffix
+    fn = _c_function("composite_bwd", name, 11, 8, 1)
     d_geo = torch.zeros_like(geo)
     d_feat = torch.zeros_like(feat)
     err = fn(geo.data_ptr(), feat.data_ptr(), starts.data_ptr(),
@@ -321,8 +356,8 @@ def composite_pairs_bwd_cuda(geo, feat, starts, counts, tstarts, trans,
              max_chunks, num_channels, feat.shape[0], int(bool(with_stats)),
              alpha_min, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"composite_bwd launch failed: CUDA error {err}")
-    launches["composite_bwd"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
     return d_geo, d_feat
 
 
@@ -408,7 +443,7 @@ def composite_pairs(geo_rows, feat_rows, starts, counts, grid_w, grid_h,
                     with_stats=True, alpha_min=ALPHA_MIN):
     """Tile compositing over the paged pair table.
 
-    geo_rows (8, P_pad) f32; feat_rows (C_pad, P_pad) f32; starts
+    geo_rows (8, P_pad) f32; feat_rows (C_pad, P_pad) f32 or bf16; starts
     (chunk-aligned page offsets) and counts (NT,) int32. Returns
     (out, out_photo, trans): out and out_photo hold the same values
     (NT, PIX, C). Compute photometric losses from out_photo and everything

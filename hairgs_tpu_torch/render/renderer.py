@@ -2,9 +2,12 @@
 hairgs_tpu/render/renderer.py).
 
 The renderer is channel-generic: one fused pass renders rgb + hair mask +
-orientation together. It always takes the paged path of the JAX package
-(sorted binning, paged pair table, `composite_pairs`), whose two passes are
-the hand-written CUDA kernels on the card.
+orientation together. `RasterConfig.use_pallas` selects the path as in the
+JAX package: True takes the paged path (sorted binning, paged pair table,
+`composite_pairs`), whose two passes are the hand-written CUDA kernels on
+the card; False (the default) takes the XLA path (dense binning and the
+log-space `composite` in stock torch operations), which runs no kernel of
+this package and serves as the kernels' independent oracle.
 """
 
 import dataclasses
@@ -13,9 +16,13 @@ import torch
 
 from hairgs_tpu_torch.core.maths import safe_norm
 from hairgs_tpu_torch.core.sh import eval_sh
-from hairgs_tpu_torch.render.binning import bin_gaussians_sorted, gather_pairs
+from hairgs_tpu_torch.render.binning import (
+    bin_gaussians,
+    bin_gaussians_sorted,
+    gather_pairs,
+)
+from hairgs_tpu_torch.render.composite import assemble_image, composite
 from hairgs_tpu_torch.render.composite_pairs import (
-    assemble_image,
     composite_pairs,
     pack_geo_rows,
     pad_feat_rows,
@@ -27,10 +34,15 @@ from hairgs_tpu_torch.render.preprocess import preprocess
 class RasterConfig:
     """Static rasterizer configuration, with the JAX package's fields.
 
-    `use_pallas`, `tiles_per_step` and `dma_lookahead` select or schedule
-    the TPU kernels; they are accepted and ignored here (the port always
-    runs the paged compositor). `feat_bf16=True` is not ported yet and
-    raises in `render`.
+    `use_pallas=True` selects the paged path, whose compositor passes are
+    the hand-written CUDA kernels (csrc/composite_fwd.cu,
+    csrc/composite_bwd.cu) on the card and their plain versions on the CPU;
+    `use_pallas=False`, the default as in JAX, selects the XLA path
+    (`bin_gaussians` + `composite`), stock torch operations only. The name
+    is kept so that a JAX configuration means the same here. `feat_bf16`
+    gives the paged path a bf16 feature plane (the XLA path ignores it, as
+    in JAX). `tiles_per_step` and `dma_lookahead` schedule the TPU kernels
+    and are accepted and ignored.
     """
 
     tile_size: int = 16
@@ -65,46 +77,103 @@ def render(camera, *, means3d, opacity, features, scales=None, rotations=None,
 
     means3d (N,3); opacity (N,); features (N,C); scales (N,3) + rotations
     (N,4 wxyz) or cov3d_precomp (N,3,3); bg (C,); active (N,) bool;
-    mean2d_offset (N,2) zeros whose gradient is the photometric-only CUDA
-    dL_dmean2D. Returns the JAX package's dict: render (H,W,C), render_photo
+    mean2d_offset (N,2) zeros whose gradient is the CUDA dL_dmean2D: on the
+    paged path that of the photometric loss alone (the aux rows), on the
+    XLA path that of whatever loss is pulled (the hook is added to the
+    projected means). Returns the JAX package's dict: render (H,W,C), render_photo
     (same values, for photometric losses), final_T (H,W), radii (N,),
     visibility_filter, the overflow counters, pairs_demand and tile_counts.
     """
     ts = config.tile_size
     grid_w = (width + ts - 1) // ts
     grid_h = (height + ts - 1) // ts
-    prep, binning, geo_rows, feat_rows = paged_pair_table(
-        camera, means3d=means3d, opacity=opacity, features=features,
-        scales=scales, rotations=rotations, cov3d_precomp=cov3d_precomp,
-        active=active, mean2d_offset=mean2d_offset,
-        scale_modifier=scale_modifier, width=width, height=height,
-        config=config)
-    max_chunks = config.max_pairs_per_tile // config.chunk
-    tiles, tiles_photo, trans_tiles = composite_pairs(
-        geo_rows, feat_rows, binning.starts, binning.counts, grid_w, grid_h,
-        ts, config.chunk, max_chunks, features.shape[-1],
-        with_stats=config.viewspace_stats, alpha_min=config.alpha_min)
+    common = dict(means3d=means3d, opacity=opacity, features=features,
+                  scales=scales, rotations=rotations,
+                  cov3d_precomp=cov3d_precomp, active=active,
+                  mean2d_offset=mean2d_offset, scale_modifier=scale_modifier,
+                  width=width, height=height, config=config)
+    if config.use_pallas:
+        prep, binning, geo_rows, feat_rows = paged_pair_table(camera, **common)
+        max_chunks = config.max_pairs_per_tile // config.chunk
+        tiles, tiles_photo, trans_tiles = composite_pairs(
+            geo_rows, feat_rows, binning.starts, binning.counts, grid_w, grid_h,
+            ts, config.chunk, max_chunks, features.shape[-1],
+            with_stats=config.viewspace_stats, alpha_min=config.alpha_min)
+        counters = dict(overflow_capacity=binning.overflow_capacity,
+                        pairs_demand=binning.pairs_demand,
+                        tile_counts=binning.counts)
+    else:
+        prep, binning, tiles, trans_tiles = _xla_composite(camera, **common)
+        tiles_photo = None
+        k = config.max_pairs_per_tile
+        # the chunk-padded slots the paged table would need (renderer.py:251-256)
+        demand = torch.sum((torch.clamp(binning.tile_counts, max=k)
+                            + config.chunk - 1) // config.chunk) * config.chunk
+        counters = dict(
+            overflow_capacity=torch.zeros((), dtype=torch.int32,
+                                          device=means3d.device),
+            pairs_demand=(demand + config.chunk).to(torch.int32),
+            tile_counts=binning.tile_counts)
     image = assemble_image(tiles, grid_w, grid_h, ts, height, width)
-    image_photo = assemble_image(tiles_photo, grid_w, grid_h, ts, height, width)
     final_t = assemble_image(trans_tiles, grid_w, grid_h, ts, height, width)
+    image_photo = None if tiles_photo is None else assemble_image(
+        tiles_photo, grid_w, grid_h, ts, height, width)
     if bg is not None:
         image = image + final_t[..., None] * bg
-        image_photo = image_photo + final_t[..., None] * bg
+        if image_photo is not None:
+            image_photo = image_photo + final_t[..., None] * bg
 
     return {
         "render": image,
         # identical values; photometric losses read this one so the
-        # dual-cotangent backward can split the viewspace statistics
-        "render_photo": image_photo,
+        # dual-cotangent backward can split the viewspace statistics (the
+        # same tensor as "render" on the XLA path)
+        "render_photo": image if image_photo is None else image_photo,
         "final_T": final_t,
         "radii": prep.radius,
         "visibility_filter": prep.radius > 0,
         "overflow_pairs": binning.overflow_pairs,
         "overflow_tiles": binning.overflow_tiles,
-        "overflow_capacity": binning.overflow_capacity,
-        "pairs_demand": binning.pairs_demand,
-        "tile_counts": binning.counts,
+        **counters,
     }
+
+
+def _xla_composite(camera, *, means3d, opacity, features, scales, rotations,
+                   cov3d_precomp, active, mean2d_offset, scale_modifier,
+                   width, height, config):
+    """The XLA path (renderer.py:198-224 of the JAX package): preprocess
+    with the additive viewspace hook, dense binning, and `composite` over
+    the gathered slots. Returns (prep, binning, tiles, trans_tiles)."""
+    ts = config.tile_size
+    grid_w = (width + ts - 1) // ts
+    grid_h = (height + ts - 1) // ts
+    prep = preprocess(
+        means3d, scales, rotations, camera, width, height, ts, active=active,
+        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+        mean2d_offset=mean2d_offset, opacity=opacity,
+        antialiasing=config.antialiasing, alpha_min=config.alpha_min)
+    opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
+    if config.antialiasing:
+        opa_eff = opa_eff * prep.compensation
+    q_cut = torch.log(torch.clamp(opa_eff.detach(), min=1e-12) / config.alpha_min)
+    binning = bin_gaussians(
+        prep.rect, prep.depth, prep.valid, grid_w, grid_h,
+        config.max_tiles_per_gaussian, config.max_pairs_per_tile,
+        xy=prep.xy.detach(), conic=prep.conic.detach(), q_cut=q_cut,
+        tile_size=ts)
+    gid = binning.gather_idx.long()
+    pv = binning.pair_valid
+    # zero every invalid slot before any product: clamped gather indices
+    # may alias rows whose (inactive) attributes are NaN, and 0 * NaN would
+    # poison the forward and the backward
+    zero = torch.zeros((), dtype=torch.float32, device=gid.device)
+    xy_g = torch.where(pv[..., None], prep.xy[gid], zero)
+    con_g = torch.where(pv[..., None], prep.conic[gid], zero)
+    opa_g = torch.where(pv, opa_eff[gid], zero)
+    feat_g = torch.where(pv[..., None], features[gid], zero)
+    tiles, trans_tiles = composite(xy_g, con_g, opa_g, feat_g, grid_w, grid_h,
+                                   ts, config.chunk, config.alpha_min)
+    return prep, binning, tiles, trans_tiles
 
 
 def paged_pair_table(camera, *, means3d, opacity, features, scales, rotations,
@@ -113,9 +182,8 @@ def paged_pair_table(camera, *, means3d, opacity, features, scales, rotations,
     """Everything `render` does before compositing: preprocess, sorted
     binning and the two gathered planes. Returns (prep, binning,
     geo_rows (8, P_pad), feat_rows (C_pad, P_pad)), the planes contiguous
-    as the compositor kernels read them."""
-    if config.feat_bf16:
-        raise NotImplementedError("RasterConfig.feat_bf16 is not ported yet")
+    as the compositor kernels read them; feat_rows is bf16 with
+    `config.feat_bf16`."""
     ts = config.tile_size
     grid_w = (width + ts - 1) // ts
     grid_h = (height + ts - 1) // ts

@@ -1,16 +1,19 @@
 """Stage-I training step (counterpart of hairgs_tpu/train/trainer.py:27-44,
-66-184,214-254): render -> loss -> backward -> densification statistics ->
-Adam, for one camera per step.
+66-254): render -> loss -> backward -> densification statistics -> Adam,
+for one camera or a batch of views per step.
 
-One fused render per step; one backward pass. The photometric losses read
-`render_photo` and the mask / orientation losses read `render`, so the
-compositor's backward receives the two cotangents separately and writes the
-photometric-only viewspace gradients into the aux rows.
+One fused render per view. On the paged path one backward pass: the
+photometric losses read `render_photo` and the mask / orientation losses
+read `render`, so the compositor's backward receives the two cotangents
+separately and writes the photometric-only viewspace gradients into the
+aux rows. On the XLA path (`use_pallas=False`) a second, photometric-only
+pull gives those gradients, as in JAX.
 """
 
 import torch
 
 from hairgs_tpu_torch import resolve_device
+from hairgs_tpu_torch.core.camera import camera_view
 from hairgs_tpu_torch.core.schedules import expon_lr
 from hairgs_tpu_torch.losses.photometric import (
     l1_loss,
@@ -96,7 +99,7 @@ def _auxiliary_loss(channels, camera, opt_cfg):
 
 def render_loss_and_grads(render_inputs_fn, params, camera, active, opt_cfg,
                           raster_cfg, width, height, render_fn=render):
-    """One fused forward and one backward. Returns (loss, param_grads,
+    """One fused forward and its backward. Returns (loss, param_grads,
     offset_grad, aux): param_grads from the total loss, offset_grad the
     photometric-only viewspace gradient (N,2) that feeds the statistics."""
     leaves = [t.detach().requires_grad_(True) for t in params]
@@ -109,9 +112,18 @@ def render_loss_and_grads(render_inputs_fn, params, camera, active, opt_cfg,
     photo_loss, photo_parts = _photometric_loss(out["render_photo"], camera, opt_cfg)
     aux_loss, aux_parts = _auxiliary_loss(out["render"], camera, opt_cfg)
     loss = photo_loss + aux_loss
+    photo_offset_grad = None
+    if not raster_cfg.use_pallas:
+        # XLA path: "render_photo" is "render", so the total-loss pull gives
+        # total-loss offset gradients; pull the photometric loss alone first
+        # for the statistics (the paged path gets them from the aux rows)
+        (photo_offset_grad,) = torch.autograd.grad(photo_loss, offset0,
+                                                   retain_graph=True)
     grads = torch.autograd.grad(loss, leaves + [offset0], allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for g, t in zip(grads, leaves + [offset0])]
+    if photo_offset_grad is not None:
+        grads[-1] = photo_offset_grad
     aux = dict(
         loss_dict={k: v.detach() for k, v in {**photo_parts, **aux_parts}.items()},
         radii=out["radii"],
@@ -124,23 +136,59 @@ def render_loss_and_grads(render_inputs_fn, params, camera, active, opt_cfg,
     return loss.detach(), type(params)(*grads[:-1]), grads[-1], aux
 
 
+def _per_view(fn, camera):
+    """fn(camera) on a single camera, or on each view of a batched camera
+    (world_view (B,4,4)) in turn, averaging losses and gradients over the
+    views (trainer.py:191-211 of the JAX package). Each view runs its render
+    and its backward before the next view starts, so only one view's graph
+    is alive at a time. radii and the offset gradients stay per view,
+    (B, N) and (B, N, 2): `_update_stats` counts them like B separate
+    reference iterations. Overflow counters are summed, pairs_demand is the
+    largest view's, and the image is view 0's."""
+    if camera.world_view.ndim != 3:
+        return fn(camera)
+    views = [fn(camera_view(camera, b)) for b in range(camera.world_view.shape[0])]
+    losses, grads, offset_grads, auxes = zip(*views)
+
+    def stack(key):
+        return torch.stack([a[key] for a in auxes])
+
+    aux = dict(
+        loss_dict={k: torch.stack([a["loss_dict"][k] for a in auxes]).mean()
+                   for k in auxes[0]["loss_dict"]},
+        radii=stack("radii"),
+        overflow_pairs=stack("overflow_pairs").sum(dtype=torch.int32),
+        overflow_tiles=stack("overflow_tiles").sum(dtype=torch.int32),
+        overflow_capacity=stack("overflow_capacity").sum(dtype=torch.int32),
+        # the pair capacity must cover the largest single view
+        pairs_demand=stack("pairs_demand").amax(),
+        image=auxes[0]["image"])
+    mean_grads = type(grads[0])(*[torch.stack(g).mean(dim=0) for g in zip(*grads)])
+    return torch.stack(losses).mean(), mean_grads, torch.stack(offset_grads), aux
+
+
 def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
                              height: int, active_sh_degree: int,
                              spatial_lr_scale: float = 1.0, device="cuda"):
-    """Build the Stage-I train step for one camera per step.
+    """Build the Stage-I train step.
 
     step_fn(params, stats, opt_state, active, camera, step) -> (params,
-    stats, opt_state, metrics, image), the JAX step's signature. All tensors
-    live on `device`. `step` is a Python int (its learning rate is then
-    computed in float32 on the host, so the card never waits for a copy) or
-    a 0-d tensor.
+    stats, opt_state, metrics, image), the JAX step's signature. `camera`
+    is one Camera or a batched one (`stack_cameras`, a leading view axis):
+    a batch averages the views' losses and gradients into one Adam step.
+    All tensors live on `device`. `step` is a Python int (its learning rate
+    is then computed in float32 on the host, so the card never waits for a
+    copy) or a 0-d tensor.
     """
     resolve_device(device)
 
     def step_fn(params, stats, opt_state, active, camera, step):
-        loss, grads, offset_grad, aux = render_loss_and_grads(
-            lambda p: gaussian_render_inputs(p, camera.cam_center, active_sh_degree),
-            params, camera, active, opt_cfg, raster_cfg, width, height)
+        def one_view(cam):
+            return render_loss_and_grads(
+                lambda p: gaussian_render_inputs(p, cam.cam_center, active_sh_degree),
+                params, cam, active, opt_cfg, raster_cfg, width, height)
+
+        loss, grads, offset_grad, aux = _per_view(one_view, camera)
         stats = _update_stats(stats, aux["radii"], offset_grad, active)
         lr_tree = gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
         if not torch.is_tensor(step):

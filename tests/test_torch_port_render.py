@@ -45,17 +45,22 @@ def _grad_close(gt, gj, err_msg=""):
                                err_msg=err_msg)
 
 
+def _port_camera(cam):
+    from hairgs_tpu_torch.models.gaussian import camera_from_numpy
+
+    return camera_from_numpy({k: None if v is None else np.asarray(v)
+                              for k, v in cam._asdict().items()}, CPU)
+
+
 def _preprocessed(n=60, seed=0, **scene_kw):
     """make_scene(n) through the port's preprocess (held to the JAX one by
     tests/test_torch_port_core.py): (prep, effective opacity, features)."""
-    from hairgs_tpu_torch.models.gaussian import camera_from_numpy
     from hairgs_tpu_torch.render.preprocess import preprocess
 
     cam, args = make_scene(n=n, seed=seed, **scene_kw)
     means, scales, q, opacity, features = (_t(a) for a in args)
-    tcam = camera_from_numpy({k: None if v is None else np.asarray(v)
-                              for k, v in cam._asdict().items()}, CPU)
-    prep = preprocess(means, scales, q, tcam, WIDTH, HEIGHT, TS, opacity=opacity)
+    prep = preprocess(means, scales, q, _port_camera(cam), WIDTH, HEIGHT, TS,
+                      opacity=opacity)
     opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
     return prep, opa_eff, features
 
@@ -114,7 +119,10 @@ def test_bin_gaussians_sorted_exact_on_depth_ties(seed, tie_fraction):
     _assert_binning_equal(bj, bt)
 
 
-def test_gather_pairs_forward_and_backward():
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gather_pairs_forward_and_backward(bf16):
+    """Both planes' gather; on a bf16 plane the backward sums each
+    Gaussian's slots in f32 and rounds once to bf16, in both frameworks."""
     from hairgs_tpu.render.binning import gather_pairs as jgather
     from hairgs_tpu_torch.render.binning import gather_pairs
 
@@ -125,14 +133,21 @@ def test_gather_pairs_forward_and_backward():
     packed = rng.normal(size=(61, 8)).astype(np.float32)
     packed[-1] = 0.0
     g = rng.normal(size=(src.shape[0], 8)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
     out_j, vjp = jax.vjp(lambda p: jgather(p, jnp.asarray(src), jnp.asarray(inv),
-                                           R_MAX), jnp.asarray(packed))
-    tp = _t(packed).requires_grad_(True)
+                                           R_MAX), jnp.asarray(packed).astype(jdt))
+    tp = _t(packed).to(tdt).requires_grad_(True)
     out_t = gather_pairs(tp, bt.paged_src, bt.inv_paged, R_MAX)
-    np.testing.assert_array_equal(out_t.detach().numpy(), np.asarray(out_j))
-    out_t.backward(_t(g))
-    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
-                               rtol=1e-6, atol=1e-6)
+    assert out_t.dtype == tdt
+    np.testing.assert_array_equal(out_t.detach().float().numpy(),
+                                  np.asarray(out_j.astype(jnp.float32)))
+    out_t.backward(_t(g).to(tdt))
+    assert tp.grad.dtype == tdt
+    d_j = np.asarray(vjp(jnp.asarray(g).astype(jdt))[0].astype(jnp.float32))
+    if bf16:
+        _assert_within_bf16_ulp(tp.grad.float().numpy(), d_j, "d_packed")
+    else:
+        np.testing.assert_allclose(tp.grad.numpy(), d_j, rtol=1e-6, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -285,46 +300,301 @@ def _dual_cotangent_scene():
     return cam, [np.asarray(a) for a in (means, scales, q, opacity, features)]
 
 
-@pytest.mark.parametrize("antialiasing", [False, True])
-def test_render_matches_jax_plain_path(antialiasing):
+
+
+@pytest.mark.parametrize("antialiasing,use_pallas,pair_capacity", [
+    pytest.param(False, True, 0, id="False"),
+    pytest.param(True, True, 0, id="True"),
+    pytest.param(False, False, 0, id="xla-False"),
+    pytest.param(True, False, 0, id="xla-True"),
+    pytest.param(False, False, 3 * CHUNK, id="xla-capacity")])
+def test_render_matches_jax_plain_path(antialiasing, use_pallas, pair_capacity):
+    """The port's render on either path against the JAX package's XLA path.
+    With use_pallas=False every key of the dict matches, pairs_demand and
+    the untruncated tile_counts exactly, and pair_capacity (a setting of the
+    paged table) truncates nothing, as in JAX: a port that took the paged
+    path here lost 0.69 of the image to it. The paged path
+    (use_pallas=True) reports its counts capped at max_pairs_per_tile."""
     from hairgs_tpu.render import RasterConfig as JConfig
     from hairgs_tpu.render import render as jrender
-    from hairgs_tpu_torch.models.gaussian import camera_from_numpy
     from hairgs_tpu_torch.render.renderer import RasterConfig, render
 
     cam, (means, scales, q, opacity, features) = _dual_cotangent_scene()
     kw = dict(max_tiles_per_gaussian=R_MAX, max_pairs_per_tile=MAX_PAIRS,
-              chunk=CHUNK, antialiasing=antialiasing)
+              chunk=CHUNK, antialiasing=antialiasing, pair_capacity=pair_capacity)
     bg = np.asarray([0.2, 0.4, 0.6], np.float32)
     # one compiled program: far quicker on the CPU than op-by-op dispatch
     oj = jax.jit(lambda m, s, r, o, f, b: jrender(
         cam, means3d=m, scales=s, rotations=r, opacity=o, features=f, bg=b,
         width=WIDTH, height=HEIGHT, config=JConfig(use_pallas=False, **kw)))(
         *map(jnp.asarray, (means, scales, q, opacity, features, bg)))
-    tcam = camera_from_numpy({k: None if v is None else np.asarray(v)
-                              for k, v in cam._asdict().items()}, CPU)
-    ot = render(tcam, means3d=_t(means), scales=_t(scales), rotations=_t(q),
-                opacity=_t(opacity), features=_t(features), bg=_t(bg),
-                width=WIDTH, height=HEIGHT, config=RasterConfig(**kw))
+    ot = render(_port_camera(cam), means3d=_t(means), scales=_t(scales),
+                rotations=_t(q), opacity=_t(opacity), features=_t(features),
+                bg=_t(bg), width=WIDTH, height=HEIGHT,
+                config=RasterConfig(use_pallas=use_pallas, **kw))
+    assert set(ot) == set(oj)
     for name in ("render", "render_photo", "final_T"):
         np.testing.assert_allclose(ot[name].detach().numpy(), np.asarray(oj[name]),
                                    atol=FWD_ATOL, err_msg=name)
     np.testing.assert_allclose(ot["radii"].numpy(), np.asarray(oj["radii"]),
                                rtol=1e-5)
-    for name in ("overflow_pairs", "overflow_tiles", "pairs_demand"):
+    np.testing.assert_array_equal(ot["visibility_filter"].numpy(),
+                                  np.asarray(oj["visibility_filter"]))
+    for name in ("overflow_pairs", "overflow_tiles", "overflow_capacity",
+                 "pairs_demand"):
         assert int(ot[name]) == int(oj[name]), name
-    np.testing.assert_array_equal(ot["tile_counts"].numpy(),
-                                  np.minimum(np.asarray(oj["tile_counts"]), MAX_PAIRS))
+    counts_j = np.asarray(oj["tile_counts"])
+    np.testing.assert_array_equal(
+        ot["tile_counts"].numpy(),
+        np.minimum(counts_j, MAX_PAIRS) if use_pallas else counts_j)
     assert float(ot["final_T"].min()) < 0.5  # the scene covers pixels
 
 
-def test_render_feat_bf16_not_ported_yet():
-    from hairgs_tpu_torch.core.camera import make_camera
-    from hairgs_tpu_torch.render.renderer import RasterConfig, render
+def _both_dense_binnings(inp, grid_w, grid_h, r_max, max_pairs, **kw):
+    from hairgs_tpu.render.binning import bin_gaussians as jbin
+    from hairgs_tpu_torch.render.binning import bin_gaussians
 
-    cam = make_camera(np.eye(3), np.zeros(3), fovx=1.2, fovy=1.0, device="cpu")
-    z = torch.zeros((1, 3))
-    with pytest.raises(NotImplementedError):
-        render(cam, means3d=z, scales=z + 0.1, rotations=torch.tensor([[1.0, 0, 0, 0]]),
-               opacity=torch.ones(1), features=z, width=WIDTH, height=HEIGHT,
-               config=RasterConfig(feat_bf16=True))
+    geo = {k: inp[k] for k in ("xy", "conic", "q_cut") if k in inp}
+    bj = jax.jit(lambda r, d, v, g: jbin(r, d, v, grid_w, grid_h, r_max,
+                                         max_pairs, **g, **kw))(
+        *(jnp.asarray(inp[k]) for k in ("rect", "depth", "valid")),
+        {k: jnp.asarray(v) for k, v in geo.items()})
+    bt = bin_gaussians(*(_t(inp[k]) for k in ("rect", "depth", "valid")),
+                       grid_w, grid_h, r_max, max_pairs,
+                       **{k: _t(v) for k, v in geo.items()}, **kw)
+    return bj, bt
+
+
+@pytest.mark.parametrize("seed,tie_fraction", [(None, None), (1, 0.5), (2, 0.9)])
+def test_bin_gaussians_exact(seed, tie_fraction):
+    """The dense XLA-path tables equal JAX's: on make_scene (with the exact
+    tile cull), and on the depth-tie scene of tests/test_binning_order.py,
+    whose quantized-depth ties must keep the stable Gaussian order."""
+    if seed is None:
+        bj, bt = _both_dense_binnings(_binning_inputs(), GRID_W, GRID_H, R_MAX,
+                                      MAX_PAIRS, tile_size=TS)
+    else:
+        rect, depth, valid = tie_scene(300, seed, tie_fraction)
+        inp = dict(rect=np.asarray(rect), depth=np.asarray(depth),
+                   valid=np.asarray(valid))
+        bj, bt = _both_dense_binnings(inp, TIE_GRID_W, TIE_GRID_H, TIE_R_MAX,
+                                      TIE_K)
+    _assert_binning_equal(bj, bt)
+    assert int(bt.pair_valid.sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def dense_table():
+    """xy_g, con_g, opa_g, feat_g of make_scene(n=40) at 48x40 in the dense
+    layout of the port's bin_gaussians (held exactly to JAX's above), the
+    invalid slots zeroed, as numpy: both compositors get these arrays."""
+    from hairgs_tpu_torch.render.binning import bin_gaussians
+
+    prep, opa_eff, features = _preprocessed(n=40, opacity_max=0.8)
+    q_cut = torch.log(torch.clamp(opa_eff, min=1e-12) / ALPHA_MIN)
+    b = bin_gaussians(prep.rect, prep.depth, prep.valid, GRID_W, GRID_H, R_MAX,
+                      MAX_PAIRS, xy=prep.xy, conic=prep.conic, q_cut=q_cut,
+                      tile_size=TS)
+    gid, pv = b.gather_idx.long(), b.pair_valid
+    gathered = (torch.where(pv[..., None], prep.xy[gid], 0.0),
+                torch.where(pv[..., None], prep.conic[gid], 0.0),
+                torch.where(pv, opa_eff[gid], 0.0),
+                torch.where(pv[..., None], features[gid], 0.0))
+    assert int(b.tile_counts.max()) > CHUNK  # several chunks per tile
+    return tuple(x.numpy() for x in gathered)
+
+
+def test_composite_matches_jax(dense_table):
+    """The XLA-path compositor: forward within 3e-5 of JAX's `composite`,
+    and its VJP (the reverse chunk scan) within 3e-3 x scale."""
+    from hairgs_tpu.render.composite import composite as jcomposite
+    from hairgs_tpu_torch.render.composite import composite
+
+    rng = np.random.default_rng(6)
+    g_out = rng.normal(size=(GRID_W * GRID_H, 256, 3)).astype(np.float32)
+    g_trans = rng.normal(size=(GRID_W * GRID_H, 256)).astype(np.float32)
+    (out_j, trans_j), vjp = jax.vjp(
+        lambda *a: jcomposite(*a, GRID_W, GRID_H, TS, CHUNK, ALPHA_MIN),
+        *map(jnp.asarray, dense_table))
+    grads_j = vjp((jnp.asarray(g_out), jnp.asarray(g_trans)))
+
+    leaves = [_t(a).requires_grad_(True) for a in dense_table]
+    out_t, trans_t = composite(*leaves, GRID_W, GRID_H, TS, CHUNK, ALPHA_MIN)
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                               atol=FWD_ATOL)
+    np.testing.assert_allclose(trans_t.detach().numpy(), np.asarray(trans_j),
+                               atol=FWD_ATOL)
+    torch.autograd.backward([out_t, trans_t], [_t(g_out), _t(g_trans)])
+    for name, leaf, gj in zip(("xy", "conic", "opacity", "feat"), leaves, grads_j):
+        assert np.abs(np.asarray(gj)).max() > 0, name
+        _grad_close(leaf.grad.numpy(), gj, name)
+
+
+def test_composite_naive_matches_jax():
+    """The sequential oracle with its permanent done latch, rects applied,
+    on a background."""
+    from hairgs_tpu.render.composite import composite_naive as jnaive
+    from hairgs_tpu_torch.render.composite import composite_naive
+
+    prep, opa_eff, features = _preprocessed(n=60)
+    bg = np.asarray([0.2, 0.4, 0.6], np.float32)
+    args = (prep.xy, prep.conic, opa_eff, features, prep.depth, prep.valid)
+    img_t, trans_t = composite_naive(*args, WIDTH, HEIGHT, bg=_t(bg),
+                                     rect=prep.rect)
+    img_j, trans_j = jnaive(*(jnp.asarray(a.numpy()) for a in args), WIDTH,
+                            HEIGHT, bg=jnp.asarray(bg),
+                            rect=jnp.asarray(prep.rect.numpy()))
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), atol=FWD_ATOL)
+    np.testing.assert_allclose(trans_t.numpy(), np.asarray(trans_j), atol=FWD_ATOL)
+    assert float(trans_t.min()) < 0.5
+
+
+def _bf16_round(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+def _assert_within_bf16_ulp(k, p, err_msg=""):
+    """|k - p| <= 2^-7 |p| (one bf16 ulp of p) everywhere, or both 0."""
+    k, p = np.asarray(k), np.asarray(p)
+    bad = np.abs(k - p) > 2.0**-7 * np.abs(p)
+    assert not bad.any(), (f"{err_msg}: {bad.sum()} entries beyond one bf16 "
+                           f"ulp, e.g. {k[bad][:4]} vs {p[bad][:4]}")
+
+
+ARG_NAMES = ("means", "scales", "q", "opacity", "features")
+
+
+def _bf16_loss_inputs():
+    """make_scene(n=40) and fixed cotangents of the loss
+    sum(render * gw) + sum(final_T * gt)."""
+    cam, args = make_scene(n=40, opacity_max=0.8)
+    rng = np.random.default_rng(9)
+    gw = rng.normal(size=(HEIGHT, WIDTH, 3)).astype(np.float32)
+    gt = rng.normal(size=(HEIGHT, WIDTH)).astype(np.float32)
+    return cam, [np.asarray(a) for a in args], gw, gt
+
+
+def _jax_render_grads(cam, args, gw, gt, cfg):
+    from hairgs_tpu.render import render as jrender
+
+    def loss(*a):
+        out = jrender(cam, means3d=a[0], scales=a[1], rotations=a[2],
+                      opacity=a[3], features=a[4], width=WIDTH, height=HEIGHT,
+                      config=cfg)
+        return (jnp.sum(out["render"] * gw) + jnp.sum(out["final_T"] * gt),
+                out["render"])
+
+    (_, img), grads = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(*map(jnp.asarray, args))
+    return np.asarray(img), [np.asarray(g) for g in grads]
+
+
+def _port_render_grads(cam, args, gw, gt, cfg):
+    from hairgs_tpu_torch.render.renderer import render
+
+    leaves = [_t(a).requires_grad_(True) for a in args]
+    out = render(_port_camera(cam), means3d=leaves[0], scales=leaves[1],
+                 rotations=leaves[2], opacity=leaves[3], features=leaves[4],
+                 width=WIDTH, height=HEIGHT, config=cfg)
+    loss = torch.sum(out["render"] * _t(gw)) + torch.sum(out["final_T"] * _t(gt))
+    loss.backward()
+    return out["render"].detach().numpy(), [x.grad.numpy() for x in leaves]
+
+
+def test_render_feat_bf16_matches_xla_on_bf16_features():
+    """The paged path with a bf16 feature plane against the JAX XLA path fed
+    the same features rounded to bf16: the forward within 3e-5 (only the
+    features round; every sum is f32), the geometry gradients within 3e-3
+    x scale, and d_features within one bf16 ulp of its scale, 2^-7 max|p|.
+    d_features rounds twice on the bf16 plane, per pair and per Gaussian,
+    so where a Gaussian's pairs cancel, its sum moves by the rounding of
+    the pairs, not of itself. The elementwise one-ulp gates are the
+    plane-level test below and the Pallas-interpret test, which round at
+    the same points."""
+    from hairgs_tpu.render import RasterConfig as JConfig
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+
+    cam, args, gw, gt = _bf16_loss_inputs()
+    kw = dict(max_tiles_per_gaussian=R_MAX, max_pairs_per_tile=MAX_PAIRS,
+              chunk=CHUNK)
+    img_t, g_t = _port_render_grads(
+        cam, args, gw, gt, RasterConfig(use_pallas=True, feat_bf16=True, **kw))
+    args_b = args[:4] + [_bf16_round(args[4])]
+    img_j, g_j = _jax_render_grads(cam, args_b, gw, gt,
+                                   JConfig(use_pallas=False, **kw))
+    np.testing.assert_allclose(img_t, img_j, atol=FWD_ATOL)
+    for name, gt_, gj in zip(ARG_NAMES[:4], g_t, g_j):
+        assert np.abs(gj).max() > 0, name
+        _grad_close(gt_, gj, name)
+    np.testing.assert_allclose(g_t[4], g_j[4], rtol=0,
+                               atol=2.0**-7 * np.abs(g_j[4]).max())
+
+
+def test_bf16_d_feat_rounds_each_pair_once(pair_table, dense_table):
+    """The bf16 plane's d_feat slot by slot: the port's compositor backward
+    against JAX's XLA `composite` VJP on the same pairs (the two binnings
+    order every tile alike), rounded to bf16 once, within one bf16 ulp."""
+    from hairgs_tpu.render.composite import composite as jcomposite
+    from hairgs_tpu_torch.render.composite_pairs import composite_pairs
+
+    geo, feat, starts, counts = pair_table
+    nt, c = GRID_W * GRID_H, 3
+    rng = np.random.default_rng(7)
+    g_out = rng.normal(size=(nt, 256, c)).astype(np.float32)
+    g_trans = rng.normal(size=(nt, 256)).astype(np.float32)
+    xy_g, con_g, opa_g, feat_g = dense_table
+    _, vjp = jax.vjp(lambda f: jcomposite(
+        jnp.asarray(xy_g), jnp.asarray(con_g), jnp.asarray(opa_g), f, GRID_W,
+        GRID_H, TS, CHUNK, ALPHA_MIN), jnp.asarray(_bf16_round(feat_g)))
+    (d_feat_j,) = vjp((jnp.asarray(g_out), jnp.asarray(g_trans)))
+    expect = _bf16_round(np.asarray(d_feat_j))  # (NT, K, C)
+
+    tf = _t(feat).to(torch.bfloat16).requires_grad_(True)
+    out, photo, trans = composite_pairs(
+        _t(geo), tf, _t(starts), _t(counts), GRID_W, GRID_H, TS, CHUNK,
+        MAX_CHUNKS, c)
+    torch.autograd.backward([out, trans], [_t(g_out), _t(g_trans)])
+    assert tf.grad.dtype == torch.bfloat16
+    d_feat = tf.grad.float().numpy()
+    got = np.zeros_like(expect)
+    for t in range(nt):
+        k = int(counts[t])
+        got[t, :k] = d_feat[:c, starts[t]:starts[t] + k].T
+    assert np.abs(expect).max() > 0
+    _assert_within_bf16_ulp(got, expect, "d_feat")
+
+
+def test_render_feat_bf16_matches_jax_pallas_interpret():
+    """Once, against JAX's own bf16 plane: render(use_pallas=True,
+    feat_bf16=True) with the Pallas kernels in interpret mode."""
+    from hairgs_tpu.render import RasterConfig as JConfig
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+
+    cam, args, gw, gt = _bf16_loss_inputs()
+    kw = dict(max_tiles_per_gaussian=R_MAX, max_pairs_per_tile=MAX_PAIRS,
+              chunk=CHUNK, use_pallas=True, feat_bf16=True)
+    img_t, g_t = _port_render_grads(cam, args, gw, gt, RasterConfig(**kw))
+    img_j, g_j = _jax_render_grads(cam, args, gw, gt,
+                                   JConfig(tiles_per_step=1, **kw))
+    np.testing.assert_allclose(img_t, img_j, atol=FWD_ATOL)
+    for name, gt_, gj in zip(ARG_NAMES[:4], g_t, g_j):
+        _grad_close(gt_, gj, name)
+    _assert_within_bf16_ulp(g_t[4], g_j[4], "features")
+
+
+def test_bf16_plane_keeps_transmittance_bit_equal(pair_table):
+    """T and tstarts touch no feature: the plain forward on the bf16 plane
+    gives the f32 plane's bit for bit, and its image differs only by the
+    rounding of the features."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    geo, feat, starts, counts = (_t(a) for a in pair_table)
+    args = (starts, counts, GRID_W, TS, CHUNK, MAX_CHUNKS, 3)
+    out_f, t_f, ts_f = cp.composite_pairs_fwd_plain(geo, feat, *args)
+    out_b, t_b, ts_b = cp.composite_pairs_fwd_plain(
+        geo, feat.to(torch.bfloat16), *args)
+    assert torch.equal(t_f, t_b) and torch.equal(ts_f, ts_b)
+    out_r, _, _ = cp.composite_pairs_fwd_plain(
+        geo, feat.to(torch.bfloat16).to(torch.float32), *args)
+    assert torch.equal(out_b, out_r)
+    assert 0 < float((out_b - out_f).abs().max()) < 1e-2

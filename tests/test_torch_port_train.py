@@ -2,8 +2,9 @@
 step and the bench scene of hairgs_tpu_torch against hairgs_tpu on the CPU.
 
 The JAX side runs its plain XLA compositor (`use_pallas=False`), which
-tests/test_pallas.py holds to the Pallas kernels; the port runs the plain
-versions of its CUDA kernels. Tolerances are those of
+tests/test_pallas.py holds to the Pallas kernels; the port runs either the
+paged path (`use_pallas=True`, the plain versions of its CUDA kernels) or
+its own XLA path. Tolerances are those of
 tests/test_pallas.py::TestDualCotangent: loss rtol 1e-4, gradients atol
 3e-3 x max |g|.
 """
@@ -55,7 +56,7 @@ def _scene():
     return cam, {k: v.astype(np.float32) for k, v in arrays.items()}
 
 
-def _both_sides(cam, arrays):
+def _both_sides(cam, arrays, use_pallas=True):
     from hairgs_tpu.config import OptimizationConfig as JOpt
     from hairgs_tpu.models.gaussian import GaussianParams as JParams
     from hairgs_tpu.render import RasterConfig as JRaster
@@ -68,7 +69,8 @@ def _both_sides(cam, arrays):
     tcam = camera_from_numpy({k: None if v is None else np.asarray(v)
                               for k, v in cam._asdict().items()}, CPU)
     torch_side = (params_from_numpy(arrays, CPU), torch.ones(N, dtype=torch.bool),
-                  OptimizationConfig(), RasterConfig(**RASTER), tcam)
+                  OptimizationConfig(), RasterConfig(use_pallas=use_pallas, **RASTER),
+                  tcam)
     return jax_side, torch_side
 
 
@@ -79,9 +81,9 @@ def test_optimization_config_matches_jax():
     assert dataclasses.asdict(OptimizationConfig()) == dataclasses.asdict(JOpt())
 
 
-def test_render_loss_and_grads_matches_jax_plain_path():
+def _check_render_loss_and_grads(use_pallas):
     """Loss, the total-loss parameter gradients and the photometric-only
-    viewspace gradient of the dual-cotangent backward."""
+    viewspace gradient against the JAX XLA path."""
     from hairgs_tpu.models.gaussian import gaussian_render_inputs as jinputs
     from hairgs_tpu.train.trainer import render_loss_and_grads as jrlg
     from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
@@ -89,7 +91,7 @@ def test_render_loss_and_grads_matches_jax_plain_path():
 
     cam, arrays = _scene()
     (jp, jactive, jopt, jraster), (tp, tactive, topt, traster, tcam) = \
-        _both_sides(cam, arrays)
+        _both_sides(cam, arrays, use_pallas)
     # one compiled program: far quicker on the CPU than op-by-op dispatch
     loss_j, grads_j, offset_j, aux_j = jax.jit(lambda p: jrlg(
         lambda q: jinputs(q, cam.cam_center, 0), p, cam, jactive, jopt,
@@ -115,21 +117,74 @@ def test_render_loss_and_grads_matches_jax_plain_path():
         assert int(aux_t[name]) == int(aux_j[name]), name
 
 
+def test_render_loss_and_grads_matches_jax_plain_path():
+    """The port's paged path: the offset gradient comes from the aux rows of
+    the dual-cotangent backward."""
+    _check_render_loss_and_grads(use_pallas=True)
+
+
+def test_render_loss_and_grads_xla_path_matches_jax():
+    """Both sides on the XLA path: the offset gradient is the photometric
+    loss's alone, from a second pull."""
+    _check_render_loss_and_grads(use_pallas=False)
+
+
+def _second_camera(cam):
+    """A second view of _scene(): the camera turned 0.15 rad about y, with
+    its own targets."""
+    from hairgs_tpu.core.camera import make_camera as jmake_camera
+
+    a = 0.15
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    rng = np.random.default_rng(11)
+    return jmake_camera(
+        R, np.array([0.1, 0.0, 0.3]), fovx=1.2, fovy=1.0,
+        image=rng.uniform(0, 1, (HEIGHT, WIDTH, 3)).astype(np.float32),
+        mask=(rng.uniform(0, 1, (HEIGHT, WIDTH)) > 0.5).astype(np.float32),
+        orientation=rng.uniform(0, np.pi, (HEIGHT, WIDTH)).astype(np.float32),
+        confidence=rng.uniform(0, 1, (HEIGHT, WIDTH)).astype(np.float32))
+
+
 def test_one_train_step_matches_jax():
     """One whole step: statistics (denom and max_radii2d exactly equal),
     Adam moments, and the updated parameters wherever the gradient is large
     enough for its sign to be certain (Adam's first step moves every
     parameter by lr * sign(g))."""
+    _check_one_step(batched=False, use_pallas=True)
+
+
+def test_one_train_step_xla_path_matches_jax():
+    """The same with the port on its XLA path: the statistics then come
+    from the second, photometric-only pull."""
+    _check_one_step(batched=False, use_pallas=False)
+
+
+def test_batched_train_step_matches_jax():
+    """A 2-view stacked step on the port's paged path against JAX's
+    make_gaussian_train_step on stack_cameras (XLA path): losses and
+    gradients averaged over the views, statistics counted per view."""
+    _check_one_step(batched=True, use_pallas=True)
+
+
+def _check_one_step(batched, use_pallas):
+    from hairgs_tpu.core.camera import stack_cameras as jstack
     from hairgs_tpu.optim import adam_init as jadam_init
     from hairgs_tpu.train.trainer import make_gaussian_train_step as jmake
     from hairgs_tpu.models.gaussian import GaussianStats as JStats
-    from hairgs_tpu_torch.models.gaussian import stats_from_numpy
+    from hairgs_tpu_torch.core.camera import stack_cameras
+    from hairgs_tpu_torch.models.gaussian import camera_from_numpy, stats_from_numpy
     from hairgs_tpu_torch.optim import adam_init
     from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
 
     cam, arrays = _scene()
     (jp, jactive, jopt, jraster), (tp, tactive, topt, traster, tcam) = \
-        _both_sides(cam, arrays)
+        _both_sides(cam, arrays, use_pallas)
+    if batched:
+        cam2 = _second_camera(cam)
+        tcam = stack_cameras([tcam, camera_from_numpy(
+            {k: None if v is None else np.asarray(v)
+             for k, v in cam2._asdict().items()}, CPU)])
+        cam = jstack([cam, cam2])
     stats = dict(max_radii2d=np.zeros(N, np.float32),
                  xyz_grad_accum=np.zeros((N, 1), np.float32),
                  denom=np.zeros((N, 1), np.float32))
@@ -147,6 +202,8 @@ def test_one_train_step_matches_jax():
     np.testing.assert_array_equal(tstats2.max_radii2d.numpy(),
                                   np.asarray(jstats2.max_radii2d))
     assert float(tstats2.denom.sum()) > 0
+    # in a batch, a Gaussian seen by both views is counted twice
+    assert float(tstats2.denom.max()) == (2.0 if batched else 1.0)
     _grad_close(tstats2.xyz_grad_accum.numpy(), jstats2.xyz_grad_accum,
                 "xyz_grad_accum")
     np.testing.assert_allclose(float(tmetrics["loss"]), float(jmetrics["loss"]),
