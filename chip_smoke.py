@@ -13,8 +13,12 @@ kernels' times beside their bounds. Exits non-zero on any failure, and when
 no CUDA device is present.
 
 Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
-versions; 5 the f32 train step; 6 f32 kernel times (and the FMA build);
-7 the bf16 feature plane (kernels, then the bf16 train step); 8 view
+versions (the forward's latch plane included), on the latch fixture, on
+dense scenes whose pixels latch, on a small scene and on bench view 0; 5 the
+f32 train step; 6 f32 kernel times (and the FMA build), the share of
+(slot, warp) combinations that pass the gates and that the cull mask keeps,
+the chunks per tile, and each kernel's resident blocks per SM; 7 the bf16
+feature plane (kernels, then the bf16 train step); 8 view
 batches (small scene against the CPU, then the 4 bench views in one step);
 9 kernel path against XLA path at 20k Gaussians and 512x512; 10 the
 precision probe.
@@ -75,6 +79,7 @@ PROBE_PLAIN_REL = 1e-5
 PARITY_IMAGE = 1e-3
 PARITY_LOSS_REL = 1e-2
 PARITY_GRAD_REL = 5e-3
+DENSE_PAGE = 512  # slots per tile of dense_scene
 GRAD_NAMES = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
               "opacity", "mask")
 
@@ -142,11 +147,14 @@ def compositor_inputs(scene, cam_idx, cfg):
 
 
 def check_forward(name, geo, feat, starts, counts, grid_w, chunk, max_chunks, C):
+    """The forward kernel against its plain version: image, T, tstarts of
+    the chunks that exist and the latch plane (bit for bit). Returns the
+    image error and the kernel's (out, trans, tstarts, latch)."""
     from hairgs_tpu_torch.render import composite_pairs as cp
 
     args = (geo, feat, starts, counts, grid_w, 16, chunk, max_chunks, C)
-    k_out, k_t, k_ts = cp.composite_pairs_fwd_cuda(*args)
-    p_out, p_t, p_ts = cp.composite_pairs_fwd_plain(*args)
+    k_out, k_t, k_ts, k_lat = cp.composite_pairs_fwd_cuda(*args)
+    p_out, p_t, p_ts, p_lat = cp.composite_pairs_fwd_plain(*args)
     torch.cuda.synchronize()
     nch = (counts + chunk - 1) // chunk
     live = (torch.arange(max_chunks, device=geo.device)[None, :] < nch[:, None])
@@ -157,11 +165,14 @@ def check_forward(name, geo, feat, starts, counts, grid_w, chunk, max_chunks, C)
         "tstarts": ((k_ts - p_ts).abs() * live).max().item(),
         "tstarts_dead_nonzero": (k_ts * ~live).abs().max().item(),
     }
+    latch_equal = torch.equal(k_lat, p_lat)
     finite = bool(torch.isfinite(k_out).all() and torch.isfinite(k_t).all())
-    print(f"  forward {name}: max abs err {errs} finite={finite}")
-    if not finite or max(errs.values()) >= FWD_GATE:
+    print(f"  forward {name}: max abs err {errs} finite={finite}; latch plane "
+          f"bit-equal {latch_equal}, latched (pixel, chunk) "
+          f"{int((k_lat >= 0).sum())}")
+    if not finite or max(errs.values()) >= FWD_GATE or not latch_equal:
         fail(f"forward kernel disagrees with its plain version on {name}")
-    return errs["image"], (k_out, k_t, k_ts)
+    return errs["image"], (k_out, k_t, k_ts, k_lat)
 
 
 def grad_gate(k, p):
@@ -190,13 +201,13 @@ def check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk,
     total-loss rows 0-1."""
     from hairgs_tpu_torch.render import composite_pairs as cp
 
-    _, trans, tstarts = fwd
+    _, trans, tstarts, latch = fwd
     g_out, g_photo, g_trans = bwd_cotangents(starts.shape[0], C, seed, geo.device)
     cnt = cp.clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
     slot, _ = live_slots(starts, cnt)
     worst = 0.0
     for stats in (True, False):
-        args = (geo, feat, starts, cnt, tstarts, trans, g_out, g_photo,
+        args = (geo, feat, starts, cnt, tstarts, latch, trans, g_out, g_photo,
                 g_trans, grid_w, 16, chunk, max_chunks, C, stats)
         k_geo, k_feat = cp.composite_pairs_bwd_cuda(*args)
         p_geo, p_feat = cp.composite_pairs_bwd_plain(*args)
@@ -216,7 +227,7 @@ def check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk,
             fail("backward without stats wrote the aux rows")
         if stats and plant_faults:
             no_carry0 = cp.composite_pairs_bwd_plain(
-                *args[:8], torch.zeros_like(g_trans), *args[9:])[0]
+                *args[:9], torch.zeros_like(g_trans), *args[10:])[0]
             swapped = p_geo[[0, 1, 2, 3, 4, 5, 0, 1]]
             for fault, wrong in (("carry start T_final*g_T dropped", no_carry0),
                                  ("aux rows swapped for rows 0-1", swapped)):
@@ -228,13 +239,12 @@ def check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk,
     return worst
 
 
-def latch_fixture(device):
+def latch_fixture(device, bf16=False):
     """One tile, 8 slots centred on pixel (0,0), opacities [.99,.99,.99,0,
     .5,0,0,0]: the latch trips in the first chunk and starts again in the
     next, so pixel 0 gets 0.005 of the second colour with chunk 4 and none
-    with chunk 8."""
-    from hairgs_tpu_torch.render import composite_pairs as cp
-
+    with chunk 8. Both kernels against their plain versions at both
+    chunks; with bf16, then both bf16 kernels (check_bf16)."""
     k = 8
     geo = torch.zeros((8, k), device=device)
     geo[2] = 50.0
@@ -246,14 +256,49 @@ def latch_fixture(device):
     starts = torch.zeros(1, dtype=torch.int32, device=device)
     counts = torch.full((1,), k, dtype=torch.int32, device=device)
     for chunk, expect in ((4, 0.005), (8, 0.0)):
-        args = (geo, feat, starts, counts, 1, 16, chunk, k // chunk, 3)
-        k_out = cp.composite_pairs_fwd_cuda(*args)[0]
-        p_out = cp.composite_pairs_fwd_plain(*args)[0]
-        got = k_out[0, 0, 1].item()
-        print(f"  latch fixture chunk={chunk}: pixel 0 = "
-              f"{k_out[0, 0].tolist()} (plain {p_out[0, 0].tolist()})")
-        if abs(got - expect) > 1e-6 or (k_out - p_out).abs().max().item() > 1e-6:
-            fail(f"latch fixture chunk={chunk}: got {got}, expected {expect}")
+        name = f"latch fixture chunk={chunk}"
+        _, fwd = check_forward(name, geo, feat, starts, counts, 1, chunk,
+                               k // chunk, 3)
+        got = fwd[0][0, 0, 1].item()
+        print(f"  {name}: pixel 0 = {fwd[0][0, 0].tolist()}, latch slots "
+              f"{fwd[3][:, 0].tolist()}")
+        if abs(got - expect) > 1e-6:
+            fail(f"{name}: got {got}, expected {expect}")
+        if bf16:
+            check_bf16(name, geo, feat, starts, counts, fwd, 1, chunk,
+                       k // chunk, 3, seed=8)
+        else:
+            check_backward(name, geo, feat, starts, counts, fwd, 1, chunk,
+                           k // chunk, 3, seed=8)
+
+
+def dense_scene(device, seed=0, grid=4, page=DENSE_PAGE, C=7):
+    """A grid x grid tile scene whose pixels latch: each tile's page holds
+    page // 2 .. page pairs with centres on or near the tile, covariances
+    of 1-30 px^2 and opacities 0.9-0.99, in depth order as drawn. Returns
+    (geo_rows, feat_rows, starts, counts, grid_w)."""
+    rng = np.random.default_rng(seed)
+    nt = grid * grid
+    n = nt * page
+    tile = np.repeat(np.arange(nt), page)
+    x = (tile % grid) * 16 + rng.uniform(-6, 22, n)
+    y = (tile // grid) * 16 + rng.uniform(-6, 22, n)
+    lam = rng.uniform(1, 30, (2, n))
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    cxx = lam[0] * cs**2 + lam[1] * sn**2
+    cyy = lam[0] * sn**2 + lam[1] * cs**2
+    cxy = (lam[0] - lam[1]) * cs * sn
+    det = cxx * cyy - cxy**2
+    geo = np.zeros((8, n), np.float32)
+    geo[:6] = np.stack([x, y, cyy / det, -cxy / det, cxx / det,
+                        rng.uniform(0.9, 0.99, n)])
+    feat = np.zeros((8, n), np.float32)
+    feat[:C] = rng.uniform(0, 1, (C, n))
+    starts = np.arange(nt, dtype=np.int32) * page
+    counts = rng.integers(page // 2, page + 1, nt).astype(np.int32)
+    return (*(torch.tensor(a, device=device) for a in (geo, feat, starts, counts)),
+            grid)
 
 
 def live_slots(starts, counts):
@@ -287,6 +332,46 @@ def gate_counts(geo, starts, counts, grid_w, alpha_min=1.0 / 255.0,
         alpha = torch.clamp(g[5][:, None] * torch.exp(power), max=0.99)
         n_pass += int(((power <= 0.0) & (alpha >= alpha_min)).sum())
     return slot.numel() * PIX, n_pass
+
+
+def warp_shares(geo, starts, counts, grid_w, alpha_min=1.0 / 255.0,
+                batch=1 << 14):
+    """(slot, warp) combinations of the tiles' lists (8 warps, each a 16x2
+    strip), how many of them have a pixel that passes the alpha gates, and
+    how many the kernels' cull mask keeps (composite_pairs.warp_reach_plain,
+    the predicate in PyTorch). Fails if the mask drops a combination that
+    a pixel passes."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    dev = geo.device
+    slot, tile = live_slots(starts, counts)
+    p = torch.arange(PIX, device=dev)
+    touched = kept = 0
+    for i in range(0, slot.numel(), batch):
+        g = geo[:, slot[i:i + batch]]
+        t = tile[i:i + batch]
+        tx0, ty0 = ((t % grid_w) * 16).float(), ((t // grid_w) * 16).float()
+        dx = g[0][:, None] - (tx0[:, None] + (p % 16).float())
+        dy = g[1][:, None] - (ty0[:, None] + (p // 16).float())
+        power = (-0.5 * (g[2][:, None] * dx * dx + g[4][:, None] * dy * dy)
+                 - g[3][:, None] * dx * dy)
+        alpha = torch.clamp(g[5][:, None] * torch.exp(power), max=0.99)
+        hit = ((power <= 0.0) & (alpha >= alpha_min)).reshape(-1, 8, 32).any(dim=2)
+        mask = cp.warp_reach_plain(g, tx0, ty0, alpha_min)
+        keep = (mask[:, None] >> torch.arange(8, device=dev)) & 1 == 1
+        if (hit & ~keep).any():
+            fail("the cull mask drops a (slot, warp) that passes the gates")
+        touched += int(hit.sum())
+        kept += int(keep.sum())
+    return slot.numel() * 8, touched, kept
+
+
+def chunk_histogram(counts, chunk):
+    """Tiles with 0, 1, 2, ... chunks, and the share of all chunks held by
+    tiles with 8 or more."""
+    nch = (counts.long() + chunk - 1) // chunk
+    heavy = int(nch[nch >= 8].sum()) / max(int(nch.sum()), 1)
+    return torch.bincount(nch).tolist(), heavy
 
 
 def bound_ms(bytes_, ops):
@@ -389,7 +474,9 @@ def profile_steps(step_fn, state, scene, n_steps=4, top=14):
     print(f"  {n_steps} profiled steps: wall {wall_ms / n_steps:.3f} ms/step "
           f"(profiler on), device busy {busy_ms / n_steps:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}% of wall), {len(rows)} kernel names")
-    for name, ms, count in rows[:top]:
+    # the largest, and the compositor kernels wherever they rank
+    shown = rows[:top] + [r for r in rows[top:] if "composite_" in r[0]]
+    for name, ms, count in shown:
         print(f"    {ms / n_steps:8.4f} ms/step {count // n_steps:5d}x/step  "
               f"{name[:90]}")
 
@@ -397,22 +484,23 @@ def profile_steps(step_fn, state, scene, n_steps=4, top=14):
 def check_bf16(name, geo, feat, starts, counts, f32_fwd, grid_w, chunk,
                max_chunks, C, seed):
     """Both kernels on the bf16 feature plane against their plain versions:
-    image < FWD_GATE; T and tstarts equal to the f32 kernels' bit for bit
-    (no feature touches them); d_geo with the f32 gates of grad_gate;
+    image < FWD_GATE; T, tstarts and the latch plane equal to the f32
+    kernels' bit for bit (no feature touches them); d_geo with the f32 gates of grad_gate;
     d_feat in bf16, every entry within one bf16 ulp of the plain value.
     Returns (image error, worst d_feat abs error, the bf16 forward)."""
     from hairgs_tpu_torch.render import composite_pairs as cp
 
     feat_b = feat.to(torch.bfloat16)
     args = (geo, feat_b, starts, counts, grid_w, 16, chunk, max_chunks, C)
-    k_out, k_t, k_ts = cp.composite_pairs_fwd_cuda(*args)
-    p_out, p_t, _ = cp.composite_pairs_fwd_plain(*args)
+    k_out, k_t, k_ts, k_lat = cp.composite_pairs_fwd_cuda(*args)
+    p_out, p_t, _, _ = cp.composite_pairs_fwd_plain(*args)
     torch.cuda.synchronize()
     img_err = (k_out - p_out).abs().max().item()
-    t_equal = torch.equal(k_t, f32_fwd[1]) and torch.equal(k_ts, f32_fwd[2])
+    t_equal = torch.equal(k_t, f32_fwd[1]) and torch.equal(k_ts, f32_fwd[2]) \
+        and torch.equal(k_lat, f32_fwd[3])
     print(f"  forward bf16 {name}: image max abs err {img_err:.3e} (against "
-          f"the f32 kernel {(k_out - f32_fwd[0]).abs().max().item():.3e}); T "
-          f"and tstarts bit-equal to the f32 kernel's: {t_equal}; T against "
+          f"the f32 kernel {(k_out - f32_fwd[0]).abs().max().item():.3e}); T, "
+          f"tstarts and latch bit-equal to the f32 kernel's: {t_equal}; T against "
           f"plain {(k_t - p_t).abs().max().item():.3e}")
     if not t_equal or img_err >= FWD_GATE or not torch.isfinite(k_out).all():
         fail(f"bf16 forward kernel disagrees on {name}")
@@ -420,7 +508,7 @@ def check_bf16(name, geo, feat, starts, counts, f32_fwd, grid_w, chunk,
     cnt = cp.clamp_counts_to_live_chunks(counts, k_ts, chunk, max_chunks)
     worst = 0.0
     for stats in (True, False):
-        bargs = (geo, feat_b, starts, cnt, k_ts, k_t, g_out, g_photo, g_trans,
+        bargs = (geo, feat_b, starts, cnt, k_ts, k_lat, k_t, g_out, g_photo, g_trans,
                  grid_w, 16, chunk, max_chunks, C, stats)
         k_geo, k_feat = cp.composite_pairs_bwd_cuda(*bargs)
         p_geo, p_feat = cp.composite_pairs_bwd_plain(*bargs)
@@ -436,7 +524,7 @@ def check_bf16(name, geo, feat, starts, counts, f32_fwd, grid_w, chunk,
         if not ok or k_feat.dtype != torch.bfloat16 or beyond \
                 or not torch.isfinite(kf).all():
             fail(f"bf16 backward kernel disagrees on {name} stats={stats}")
-    return img_err, worst, (k_out, k_t, k_ts)
+    return img_err, worst, (k_out, k_t, k_ts, k_lat)
 
 
 def run_steps(step_fn, state, active, cam_for, n_warm, n_timed, first_step):
@@ -658,6 +746,15 @@ def main():
 
     print("phase 3: forward kernel against its plain version")
     latch_fixture(device)
+    # scenes whose pixels latch (bench view 0 has none), at three chunk
+    # sizes: 512 stages more slots than a block has threads and takes more
+    # than 48 KB of shared memory in the backward
+    dense = {}
+    for dchunk in (32, 128, 512):
+        d_in = dense_scene(device, seed=dchunk)
+        _, d_fwd = check_forward(f"dense latching chunk={dchunk}", *d_in,
+                                 dchunk, DENSE_PAGE // dchunk, C)
+        dense[dchunk] = (d_in, d_fwd)
     small = build_bench_scene(n_gaussians=4096, width=256, height=256, seed=2,
                               device=device)
     s_in = compositor_inputs(small, 0, cfg)
@@ -670,6 +767,9 @@ def main():
                                    grid_w, chunk, max_chunks, C)
 
     print("phase 4: backward kernel against its plain version")
+    for dchunk, (d_in, d_fwd) in dense.items():
+        check_backward(f"dense latching chunk={dchunk}", *d_in[:4], d_fwd,
+                       d_in[4], dchunk, DENSE_PAGE // dchunk, C, seed=9)
     check_backward("small 256x256", *s_in[:4], s_fwd, 16, chunk, max_chunks,
                    C, seed=3)
     bwd_err = check_backward("bench view 0", geo, feat, starts, counts, f_fwd,
@@ -707,11 +807,11 @@ def main():
 
     print("phase 6: kernel times at one bench view")
     fwd_args = (geo, feat, starts, counts, grid_w, 16, chunk, max_chunks, C)
-    _, trans, tstarts = f_fwd
+    _, trans, tstarts, latch = f_fwd
     cnt = cp.clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
     cots = bwd_cotangents(nt, C, 5, device)
-    bwd_args = (geo, feat, starts, cnt, tstarts, trans, *cots, grid_w, 16,
-                chunk, max_chunks, C, True)
+    bwd_args = (geo, feat, starts, cnt, tstarts, latch, trans, *cots, grid_w,
+                16, chunk, max_chunks, C, True)
     # the shipped kernels and their FMA-contracted builds, timed in turns
     turns = {"": ([], []), FMA: ([], [])}
     for suffix in ("", FMA, FMA, ""):
@@ -734,14 +834,26 @@ def main():
           f"gates {fwd_gates[1]} (backward {bwd_gates[1]}); pixels with "
           f"final T < 0.01, the only ones that can have latched: "
           f"{(trans < 0.01).sum().item()} of {trans.numel()}")
+    n_sw, touched, kept = warp_shares(geo, starts, counts, grid_w)
+    print(f"  (slot, warp) combinations {n_sw}: some lane passes the gates in "
+          f"{touched / n_sw:.4f}, the cull mask keeps {kept / n_sw:.4f}")
+    hist, heavy = chunk_histogram(counts, chunk)
+    print(f"  chunks per tile (tiles with 0, 1, 2, ... chunks): {hist}; tiles "
+          f"with >= 8 chunks hold {heavy:.4f} of the chunks")
+    occ = {name: cp.blocks_per_sm(name, C, chunk, bf16=b)
+           for name, b in (("composite_fwd", False), ("composite_bwd", False))}
+    occ.update({name + "_bf16": cp.blocks_per_sm(name, C, chunk, bf16=True)
+                for name in ("composite_fwd", "composite_bwd")})
+    print(f"  resident blocks of 256 threads per SM (occupancy calculator, "
+          f"C={C}, chunk={chunk}, stats on): {occ}")
     print(f"  composite_fwd {k_fwd_ms:.4f} ms, turns {turns[''][0]} (plain "
           f"{p_fwd_ms:.3f} ms, bound {fb:.4f} ms by {fb_by})")
     print(f"  composite_bwd {k_bwd_ms:.4f} ms, turns {turns[''][1]} (plain "
           f"{p_bwd_ms:.3f} ms, bound {bb:.4f} ms by {bb_by})")
     with kernels.variant(FMA):
-        m_out, m_t, _ = cp.composite_pairs_fwd_cuda(*fwd_args)
+        m_out, m_t, _, _ = cp.composite_pairs_fwd_cuda(*fwd_args)
         m_geo, m_feat = cp.composite_pairs_bwd_cuda(*bwd_args)
-    p_out, p_t, _ = cp.composite_pairs_fwd_plain(*fwd_args)
+    p_out, p_t, _, _ = cp.composite_pairs_fwd_plain(*fwd_args)
     p_geo, p_feat = cp.composite_pairs_bwd_plain(*bwd_args)
     flips = ((m_t - p_t).abs() > 1e-3 * p_t).sum().item()
     print(f"  with FMA contraction: composite_fwd turns {turns[FMA][0]} ms, "
@@ -755,6 +867,10 @@ def main():
     t_phase = time.perf_counter()
 
     print("phase 7: bf16 feature plane")
+    latch_fixture(device, bf16=True)
+    for dchunk, (d_in, d_fwd) in dense.items():
+        check_bf16(f"dense latching chunk={dchunk}", *d_in[:4], d_fwd, d_in[4],
+                   dchunk, DENSE_PAGE // dchunk, C, seed=10)
     check_bf16("small 256x256", *s_in[:4], s_fwd, 16, chunk, max_chunks, C, seed=6)
     bf_fwd_err, bf_bwd_err, b_fwd = check_bf16(
         "bench view 0", geo, feat, starts, counts, f_fwd, grid_w, chunk,

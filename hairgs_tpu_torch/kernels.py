@@ -48,18 +48,20 @@ def _lib_path(name: str, suffix: str = "") -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared header."""
     lib = _lib_path(name)
-    src = CSRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    srcs = [CSRC_DIR / f"{name}.cu", *CSRC_DIR.glob("*.cuh")]
+    return not lib.exists() or lib.stat().st_mtime < max(s.stat().st_mtime for s in srcs)
 
 
-def build(names=KERNELS, verbose: bool = False, variants=None) -> dict:
+def build(names=KERNELS, verbose: bool = False, variants=None,
+          src_dir: Path = CSRC_DIR) -> dict:
     """Compile the named kernels, all nvcc processes started together;
     returns the wall seconds of each build, and the compiler's report when
     verbose (-Xptxas -v: registers, shared memory, spills). `variants`
     maps a library suffix to the flags that replace NVCC_FLAGS for it
     (default: the one library per kernel that the wrappers load); report
-    keys are name + suffix."""
+    keys are name + suffix. `src_dir` holds the sources (default csrc/)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -68,7 +70,7 @@ def build(names=KERNELS, verbose: bool = False, variants=None) -> dict:
         for name in names:
             tmp = BUILD_DIR / f"lib{name}{suffix}.{os.getpid()}.tmp.so"
             cmd = [nvcc, *flags, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+                   "-o", str(tmp), str(src_dir / f"{name}.cu")]
             procs[name + suffix] = (tmp, _lib_path(name, suffix), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     report = {}

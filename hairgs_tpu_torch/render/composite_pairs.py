@@ -15,21 +15,27 @@ chunk a pair is live while the transmittance prefix over ALL pairs of the
 chunk stays >= T_EPS; at the chunk's end T is multiplied by the live pairs'
 (1 - alpha) only, so a pixel that tripped the latch starts again at the next
 chunk from its frozen T. `chunk` is therefore part of the function, not only
-a schedule.
+a schedule. Besides the transmittance at each chunk's start (`tstarts`) the
+forward records each pixel's latch slot per chunk (`latch`, int16, -1 for
+none), and the kernel backward starts each chunk from it and from the
+transmittance after the chunk instead of running the chunk forward again;
+the plain backward keeps that rerun as the specification.
 
 The feature plane is float32 or bfloat16 (`RasterConfig.feat_bf16`, as in
 pallas_composite.py:103-113): a bf16 feature is widened to float32 where it
 is read and every sum stays float32; the backward writes d_feat in the
 plane's dtype, each slot's float32 sum rounded once to nearest-even. The
-gates, alpha, T and the latch touch no feature, so T and `tstarts` of a
-bf16 plane equal those of the f32 plane bit for bit.
+gates, alpha, T and the latch touch no feature, so T, `tstarts` and
+`latch` of a bf16 plane equal those of the f32 plane bit for bit.
 
 On a CUDA tensor each pass launches its hand-written kernel
 (csrc/composite_fwd.cu, csrc/composite_bwd.cu; one C entry point per
 feature dtype) or raises; on a CPU tensor it runs the plain PyTorch version
 below, which walks the slots in the same order with the same float32
 operations, the pixel sums of the backward included, so on the card the
-two agree bit for bit.
+two agree bit for bit. The kernels skip, per warp, the pairs whose
+alpha >= alpha_min ellipse misses the warp's pixel rows (`warp_reach_plain`
+is that test), which changes no sum.
 """
 
 import ctypes
@@ -116,8 +122,12 @@ def composite_pairs_fwd_plain(geo, feat, starts, counts, grid_w, tile_size,
                               alpha_min=ALPHA_MIN):
     """Plain PyTorch forward: a loop over chunks and their slots,
     vectorised over tiles and pixels. Returns out (NT, PIX, C), trans
-    (NT, PIX) and tstarts (NT * max_chunks, PIX), the transmittance at the
-    start of every chunk j < ceil(count / chunk) (zero elsewhere)."""
+    (NT, PIX), tstarts (NT * max_chunks, PIX), the transmittance at the
+    start of every chunk j < ceil(count / chunk) (zero elsewhere), and
+    latch (NT * max_chunks, PIX) int16: for every chunk that runs, the slot
+    (within the chunk) of the first pair whose gate passes but would take
+    the pixel below T_EPS, after which the pixel is out for the rest of the
+    chunk; -1 for none and for chunks that do not run."""
     dev = geo.device
     nt = starts.shape[0]
     pix = tile_size * tile_size
@@ -126,6 +136,7 @@ def composite_pairs_fwd_plain(geo, feat, starts, counts, grid_w, tile_size,
     T = torch.ones((nt, pix), dtype=torch.float32, device=dev)
     acc = torch.zeros((nt, pix, num_channels), dtype=torch.float32, device=dev)
     tstarts = torch.zeros((nt, max_chunks, pix), dtype=torch.float32, device=dev)
+    latch = torch.full((nt, max_chunks, pix), -1, dtype=torch.int16, device=dev)
     nch = (counts + chunk - 1) // chunk
     done = torch.zeros(nt, dtype=torch.bool, device=dev)
     counts_host = counts.tolist()
@@ -140,22 +151,79 @@ def composite_pairs_fwd_plain(geo, feat, starts, counts, grid_w, tile_size,
             pos = j * chunk + k
             inmask = run & (pos < counts)
             slot = torch.clamp(starts + pos, max=p_pad - 1).long()
-            alpha, *_ = _slot_quantities(geo, slot, inmask, px, py, alpha_min)
+            alpha, _, ok, *_ = _slot_quantities(geo, slot, inmask, px, py, alpha_min)
             t_next = t_run * (1.0 - alpha)
-            alive = alive & (t_next >= T_EPS)
+            trip = alive & ok & (t_next < T_EPS)
+            latch[:, j] = torch.where(trip, k, latch[:, j])
+            alive = alive & ~trip
             w = torch.where(alive, alpha * t_run, torch.zeros_like(alpha))
             f = feat[:num_channels, slot].T.to(torch.float32)  # (NT, C)
             acc = acc + w[..., None] * f[:, None, :]
             t_run = torch.where(alive, t_next, t_run)
         T = t_run
         done = done | (act & (T.amax(dim=1) < T_EPS))
-    return acc, T, tstarts.reshape(nt * max_chunks, pix)
+    return (acc, T, tstarts.reshape(nt * max_chunks, pix),
+            latch.reshape(nt * max_chunks, pix))
 
 
-def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, trans,
-                              g_out, g_photo, g_trans, grid_w, tile_size,
-                              chunk, max_chunks, num_channels, with_stats,
-                              alpha_min=ALPHA_MIN):
+def _rerun_chunk(geo, starts, counts, t_start, act, j, n_slots, px, py, chunk,
+                 alpha_min):
+    """The backward's specification of chunk j's forward: from the chunk's
+    start transmittance, whether each pixel is still live at each slot, and
+    the transmittance after its last live pair."""
+    nt, pix = t_start.shape
+    p_pad = geo.shape[1]
+    t_cur = t_start
+    alive = act[:, None].expand(nt, pix)
+    alive_at, ok_at = [], []
+    for k in range(n_slots):
+        pos = j * chunk + k
+        inmask = act & (pos < counts)
+        slot = torch.clamp(starts + pos, max=p_pad - 1).long()
+        alpha, _, ok, *_ = _slot_quantities(geo, slot, inmask, px, py, alpha_min)
+        t_next = t_cur * (1.0 - alpha)
+        alive = alive & (t_next >= T_EPS)
+        alive_at.append(alive)
+        ok_at.append(ok)
+        t_cur = torch.where(alive, t_next, t_cur)
+    return alive_at, ok_at, t_cur
+
+
+def rerun_latch_plain(geo, starts, counts, tstarts, trans, grid_w, tile_size,
+                      chunk, max_chunks, alpha_min=ALPHA_MIN):
+    """What the plain backward's rerun finds for every chunk that the
+    clamped counts keep: the slot at which it drops each pixel (the first
+    slot whose gate passes though the pixel is no longer live, -1 for none)
+    and the transmittance after the chunk, as (NT * max_chunks, PIX)
+    planes (-1 and 0 elsewhere). The forward's latch plane and its
+    tstarts[j + 1] (or the final T after the last chunk) must equal them:
+    the kernel backward starts each chunk from those instead."""
+    dev = geo.device
+    nt = starts.shape[0]
+    pix = tile_size * tile_size
+    counts = clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
+    px, py = _pixel_coords(nt, grid_w, tile_size, dev)
+    ts = tstarts.reshape(nt, max_chunks, pix)
+    drop = torch.full((nt, max_chunks, pix), -1, dtype=torch.int16, device=dev)
+    t_after = torch.zeros((nt, max_chunks, pix), dtype=torch.float32, device=dev)
+    nch = (counts + chunk - 1) // chunk
+    counts_host = counts.tolist()
+    n_chunks = max([(c + chunk - 1) // chunk for c in counts_host], default=0)
+    for j in range(n_chunks):
+        act = j < nch
+        alive_at, ok_at, t_cur = _rerun_chunk(
+            geo, starts, counts, ts[:, j], act, j,
+            _slots_in_chunk(counts_host, j, chunk), px, py, chunk, alpha_min)
+        for k in reversed(range(len(alive_at))):
+            drop[:, j] = torch.where(ok_at[k] & ~alive_at[k], k, drop[:, j])
+        t_after[:, j] = torch.where(act[:, None], t_cur, torch.zeros_like(t_cur))
+    return drop.reshape(nt * max_chunks, pix), t_after.reshape(nt * max_chunks, pix)
+
+
+def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, latch,
+                              trans, g_out, g_photo, g_trans, grid_w,
+                              tile_size, chunk, max_chunks, num_channels,
+                              with_stats, alpha_min=ALPHA_MIN):
     """Plain PyTorch backward. `counts` are already clamped to the chunks
     the forward ran. g_out is the total-loss cotangent (NT, PIX, C), g_photo
     the photometric-only one (read only with_stats), g_trans (NT, PIX).
@@ -166,7 +234,11 @@ def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, trans,
     The arithmetic is the kernel's, step for step: the transmittance before
     a pair is recovered by dividing by (1 - alpha) on the way back, f . g
     is summed channel by channel, and the 256 pixels of a tile are summed
-    as the kernel sums them (`_block_sum`)."""
+    as the kernel sums them (`_block_sum`). As the specification, it runs
+    each chunk forward again from `tstarts` to find the live pairs and the
+    transmittance after them; the forward's `latch` plane, from which the
+    kernel starts instead, is not read here."""
+    del latch
     dev = geo.device
     nt = starts.shape[0]
     pix = tile_size * tile_size
@@ -187,18 +259,8 @@ def composite_pairs_bwd_plain(geo, feat, starts, counts, tstarts, trans,
         n_slots = _slots_in_chunk(counts_host, j, chunk)
         # forward again from the chunk's start: the latch at each slot and
         # the transmittance after the last live pair
-        t_cur = ts[:, j]
-        alive = act[:, None].expand(nt, pix)
-        alive_at = []
-        for k in range(n_slots):
-            pos = j * chunk + k
-            inmask = act & (pos < counts)
-            slot = torch.clamp(starts + pos, max=p_pad - 1).long()
-            alpha, *_ = _slot_quantities(geo, slot, inmask, px, py, alpha_min)
-            t_next = t_cur * (1.0 - alpha)
-            alive = alive & (t_next >= T_EPS)
-            alive_at.append(alive)
-            t_cur = torch.where(alive, t_next, t_cur)
+        alive_at, _, t_cur = _rerun_chunk(geo, starts, counts, ts[:, j], act, j,
+                                          n_slots, px, py, chunk, alpha_min)
         for k in reversed(range(n_slots)):
             pos = j * chunk + k
             inmask = act & (pos < counts)
@@ -261,6 +323,52 @@ def _block_sum(v):
     return s
 
 
+def warp_reach_plain(geo_cols, tx0, ty0, alpha_min=ALPHA_MIN):
+    """The kernels' per-warp cull predicate (csrc/composite_common.cuh::
+    warp_reach), in float64: for pairs with geometry columns geo_cols
+    (>= 6, n) [x, y, a, b, c, opacity] in tiles whose first pixel is
+    (tx0, ty0) (n,), an (n,) int mask whose bit w is set when the pair's
+    alpha >= alpha_min ellipse may reach pixel rows 2w and 2w+1 of the
+    tile. A cleared bit means every pixel of those rows fails the fp32
+    gate of `_slot_quantities`: the bound 2 ln(opacity / alpha_min) on the
+    quadratic form is widened for the rounding of its fp32 terms and of
+    expf. Opacity below alpha_min: no warp; a position or conic that is not
+    finite, or a conic not positive definite to 1e-12 of a c: every warp."""
+    alpha_min = torch.tensor(alpha_min, dtype=torch.float32).item()  # as the kernels take it
+    x, y, a, b, c, opa = (geo_cols[r].to(torch.float64) for r in range(6))
+    tx0 = torch.as_tensor(tx0, dtype=torch.float64, device=x.device)
+    ty0 = torch.as_tensor(ty0, dtype=torch.float64, device=x.device)
+    last = KERNEL_TILE - 1.0
+    none = ~(opa >= alpha_min) | (not alpha_min <= ALPHA_MAX)
+    finite = (torch.isfinite(x) & torch.isfinite(y) & torch.isfinite(a)
+              & torch.isfinite(b) & torch.isfinite(c))
+    zero = torch.zeros_like(a)
+    a, b, c = (torch.where(finite, v, zero) for v in (a, b, c))
+    det = a * c - b * b
+    definite = finite & (a > 0) & (c > 0) & (det > 1e-12 * a * c)
+    safe_det = torch.where(definite, det, torch.ones_like(det))
+    q = torch.log(torch.clamp(opa, min=alpha_min) / alpha_min)
+    dx0 = torch.where(finite, x, zero) - tx0
+    dy0 = torch.where(finite, y, zero) - ty0
+    big_x = torch.maximum(dx0.abs(), (dx0 - last).abs())
+    big_y = torch.maximum(dy0.abs(), (dy0 - last).abs())
+    s = a * big_x * big_x + c * big_y * big_y + 2.0 * b.abs() * big_x * big_y
+    r = (2.0 * q + 1e-5) * (1.0 + 1e-6) + 2.0**-17 * s
+    ex = torch.sqrt(torch.clamp(r * c / safe_det, min=0)) * (1.0 + 1e-3) + 1e-3
+    ey = torch.sqrt(torch.clamp(r * a / safe_det, min=0)) * (1.0 + 1e-3) + 1e-3
+    cols = torch.ceil(torch.clamp(dx0 - ex, min=0.0)) <= torch.floor(
+        torch.clamp(dx0 + ex, max=last))
+    lo = torch.ceil(torch.clamp(dy0 - ey, min=0.0))
+    hi = torch.floor(torch.clamp(dy0 + ey, max=last))
+    rows = cols & (lo <= hi)
+    w_lo = (torch.clamp(lo, 0, last).long() >> 1)
+    w_hi = (torch.clamp(hi, 0, last).long() >> 1)
+    strip = ((1 << (w_hi + 1)) - 1) & ~((1 << w_lo) - 1)
+    mask = torch.where(rows, strip, torch.zeros_like(strip))
+    mask = torch.where(definite, mask, torch.full_like(mask, 0xFF))
+    return torch.where(none, torch.zeros_like(mask), mask)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -315,50 +423,68 @@ def composite_pairs_fwd_cuda(geo, feat, starts, counts, grid_w, tile_size,
                                            tile_size, num_channels)
     pix = tile_size * tile_size
     name = "composite_fwd" + suffix
-    fn = _c_function("composite_fwd", name, 7, 7, 1)
+    fn = _c_function("composite_fwd", name, 8, 7, 1)
     out = torch.empty((nt, pix, num_channels), dtype=torch.float32, device=dev)
     trans = torch.empty((nt, pix), dtype=torch.float32, device=dev)
     tstarts = torch.zeros((nt * max_chunks, pix), dtype=torch.float32, device=dev)
+    latch = torch.full((nt * max_chunks, pix), -1, dtype=torch.int16, device=dev)
     err = fn(geo.data_ptr(), feat.data_ptr(), starts.data_ptr(),
              counts.data_ptr(), out.data_ptr(), trans.data_ptr(),
-             tstarts.data_ptr(), nt, p_pad, grid_w, chunk, max_chunks,
-             num_channels, feat.shape[0], alpha_min,
+             tstarts.data_ptr(), latch.data_ptr(), nt, p_pad, grid_w, chunk,
+             max_chunks, num_channels, feat.shape[0], alpha_min,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
-    return out, trans, tstarts
+    return out, trans, tstarts, latch
 
 
-def composite_pairs_bwd_cuda(geo, feat, starts, counts, tstarts, trans,
+def composite_pairs_bwd_cuda(geo, feat, starts, counts, tstarts, latch, trans,
                              g_out, g_photo, g_trans, grid_w, tile_size,
                              chunk, max_chunks, num_channels, with_stats,
                              alpha_min=ALPHA_MIN):
     """Launches csrc/composite_bwd.cu (entry point composite_bwd or
-    composite_bwd_bf16); same contract as the plain backward. d_feat has
+    composite_bwd_bf16); same contract as the plain backward, but each
+    chunk starts from the forward's latch plane and tstarts. d_feat has
     the feature plane's dtype."""
     dev, nt, p_pad, suffix = _check_common(geo, feat, starts, counts,
                                            tile_size, num_channels)
     pix = tile_size * tile_size
     _check(tstarts, "tstarts", (nt * max_chunks, pix), torch.float32, dev)
+    _check(latch, "latch", (nt * max_chunks, pix), torch.int16, dev)
     _check(trans, "trans", (nt, pix), torch.float32, dev)
     _check(g_out, "g_out", (nt, pix, num_channels), torch.float32, dev)
     _check(g_photo, "g_photo", (nt, pix, num_channels), torch.float32, dev)
     _check(g_trans, "g_trans", (nt, pix), torch.float32, dev)
     name = "composite_bwd" + suffix
-    fn = _c_function("composite_bwd", name, 11, 8, 1)
+    fn = _c_function("composite_bwd", name, 12, 8, 1)
     d_geo = torch.zeros_like(geo)
     d_feat = torch.zeros_like(feat)
     err = fn(geo.data_ptr(), feat.data_ptr(), starts.data_ptr(),
-             counts.data_ptr(), tstarts.data_ptr(), trans.data_ptr(),
-             g_out.data_ptr(), g_photo.data_ptr(), g_trans.data_ptr(),
-             d_geo.data_ptr(), d_feat.data_ptr(), nt, p_pad, grid_w, chunk,
-             max_chunks, num_channels, feat.shape[0], int(bool(with_stats)),
-             alpha_min, torch.cuda.current_stream(dev).cuda_stream)
+             counts.data_ptr(), tstarts.data_ptr(), latch.data_ptr(),
+             trans.data_ptr(), g_out.data_ptr(), g_photo.data_ptr(),
+             g_trans.data_ptr(), d_geo.data_ptr(), d_feat.data_ptr(), nt, p_pad,
+             grid_w, chunk, max_chunks, num_channels, feat.shape[0],
+             int(bool(with_stats)), alpha_min,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
     return d_geo, d_feat
+
+
+def blocks_per_sm(name, num_channels, chunk, bf16=False, with_stats=True):
+    """Resident blocks per SM of kernel `name` ("composite_fwd" or
+    "composite_bwd") at these settings, as the CUDA occupancy calculator
+    gives it for the kernel's registers and shared memory."""
+    lib = kernels.load(name)
+    fn = getattr(lib, name + "_blocks_per_sm")
+    blocks = ctypes.c_int(0)
+    args = [num_channels, int(bf16)] + ([int(with_stats)] if name == "composite_bwd" else [])
+    err = fn(*(ctypes.c_int(a) for a in args + [chunk]), ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def _dispatch(t, plain, cuda):
@@ -377,13 +503,13 @@ def composite_pairs_fwd(geo, feat, starts, counts, grid_w, tile_size, chunk,
               num_channels, alpha_min)
 
 
-def composite_pairs_bwd(geo, feat, starts, counts, tstarts, trans, g_out,
+def composite_pairs_bwd(geo, feat, starts, counts, tstarts, latch, trans, g_out,
                         g_photo, g_trans, grid_w, tile_size, chunk,
                         max_chunks, num_channels, with_stats,
                         alpha_min=ALPHA_MIN):
     """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     fn = _dispatch(geo, composite_pairs_bwd_plain, composite_pairs_bwd_cuda)
-    return fn(geo, feat, starts, counts, tstarts, trans, g_out, g_photo,
+    return fn(geo, feat, starts, counts, tstarts, latch, trans, g_out, g_photo,
               g_trans, grid_w, tile_size, chunk, max_chunks, num_channels,
               with_stats, alpha_min)
 
@@ -406,10 +532,10 @@ class _CompositePairs(torch.autograd.Function):
                 chunk, max_chunks, num_channels, with_stats, alpha_min):
         geo = geo_rows.contiguous()
         feat = feat_rows.contiguous()
-        out, trans, tstarts = composite_pairs_fwd(
+        out, trans, tstarts, latch = composite_pairs_fwd(
             geo, feat, starts, counts, grid_w, tile_size, chunk, max_chunks,
             num_channels, alpha_min)
-        ctx.save_for_backward(geo, feat, starts, counts, tstarts, trans)
+        ctx.save_for_backward(geo, feat, starts, counts, tstarts, latch, trans)
         ctx.cfg = (grid_w, tile_size, chunk, max_chunks, num_channels,
                    with_stats, alpha_min)
         ctx.set_materialize_grads(False)
@@ -417,7 +543,7 @@ class _CompositePairs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_aux, g_photo, g_trans):
-        geo, feat, starts, counts, tstarts, trans = ctx.saved_tensors
+        geo, feat, starts, counts, tstarts, latch, trans = ctx.saved_tensors
         (grid_w, tile_size, chunk, max_chunks, num_channels, with_stats,
          alpha_min) = ctx.cfg
         if g_aux is None and g_photo is None and g_trans is None:
@@ -432,7 +558,7 @@ class _CompositePairs(torch.autograd.Function):
             g_trans = zeros(nt, pix)
         counts = clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
         d_geo, d_feat = composite_pairs_bwd(
-            geo, feat, starts, counts, tstarts, trans, g_out.contiguous(),
+            geo, feat, starts, counts, tstarts, latch, trans, g_out.contiguous(),
             g_photo.contiguous(), g_trans.contiguous(), grid_w, tile_size,
             chunk, max_chunks, num_channels, with_stats, alpha_min)
         return (d_geo, d_feat) + (None,) * 9

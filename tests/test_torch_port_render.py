@@ -15,6 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from tests.test_binning_order import CHUNK as TIE_CHUNK
 from tests.test_binning_order import GRID_H as TIE_GRID_H
@@ -218,7 +220,7 @@ def test_composite_pairs_plain_matches_pallas_interpret(pair_table, with_stats):
         _, _, (ts_j, _) = _forward_pallas(
             jnp.asarray(geo), jnp.asarray(feat), jnp.asarray(starts),
             jnp.asarray(counts), GRID_W, GRID_H, TS, CHUNK, MAX_CHUNKS, c, True, 1)
-        _, _, ts_t = cp.composite_pairs_fwd_plain(
+        _, _, ts_t, _ = cp.composite_pairs_fwd_plain(
             _t(geo), _t(feat), _t(starts), _t(counts), GRID_W, TS, CHUNK,
             MAX_CHUNKS, c)
         live = np.arange(MAX_CHUNKS)[None, :] < ((counts + CHUNK - 1) // CHUNK)[:, None]
@@ -254,7 +256,7 @@ def test_chunk_boundary_latch(chunk, green, trans):
     from hairgs_tpu_torch.render.composite_pairs import composite_pairs_fwd_plain
 
     geo, feat = _latch_fixture()
-    out, t, _ = composite_pairs_fwd_plain(
+    out, t, _, _ = composite_pairs_fwd_plain(
         _t(geo), _t(feat), torch.zeros(1, dtype=torch.int32),
         torch.full((1,), 8, dtype=torch.int32), 1, TS, chunk, 8 // chunk, 3)
     np.testing.assert_allclose(out[0, 0].numpy(), [0.99, green, 0.0], atol=1e-6)
@@ -583,18 +585,172 @@ def test_render_feat_bf16_matches_jax_pallas_interpret():
 
 
 def test_bf16_plane_keeps_transmittance_bit_equal(pair_table):
-    """T and tstarts touch no feature: the plain forward on the bf16 plane
-    gives the f32 plane's bit for bit, and its image differs only by the
+    """T, tstarts and the latch plane touch no feature: the plain forward on
+    the bf16 plane gives the f32 plane's bit for bit, and its image differs only by the
     rounding of the features."""
     from hairgs_tpu_torch.render import composite_pairs as cp
 
     geo, feat, starts, counts = (_t(a) for a in pair_table)
     args = (starts, counts, GRID_W, TS, CHUNK, MAX_CHUNKS, 3)
-    out_f, t_f, ts_f = cp.composite_pairs_fwd_plain(geo, feat, *args)
-    out_b, t_b, ts_b = cp.composite_pairs_fwd_plain(
+    out_f, t_f, ts_f, lat_f = cp.composite_pairs_fwd_plain(geo, feat, *args)
+    out_b, t_b, ts_b, lat_b = cp.composite_pairs_fwd_plain(
         geo, feat.to(torch.bfloat16), *args)
     assert torch.equal(t_f, t_b) and torch.equal(ts_f, ts_b)
-    out_r, _, _ = cp.composite_pairs_fwd_plain(
+    assert torch.equal(lat_f, lat_b)
+    out_r, _, _, _ = cp.composite_pairs_fwd_plain(
         geo, feat.to(torch.bfloat16).to(torch.float32), *args)
     assert torch.equal(out_b, out_r)
     assert 0 < float((out_b - out_f).abs().max()) < 1e-2
+
+
+def _warp_of_pixel_rows(ok):
+    """(n, 256) bool -> (n, 8) bool: any pixel of rows 2w, 2w+1 passes."""
+    return ok.reshape(ok.shape[0], 8, 32).any(dim=2)
+
+
+def _random_pairs(rng, n, kind):
+    """n pairs around tile (2, 1) of a 16-px grid: geometry rows (8, n) f32
+    of the given kind of conic and opacity."""
+    tx0, ty0 = 32.0, 16.0
+    x = tx0 + rng.uniform(-60, 76, n)
+    y = ty0 + rng.uniform(-60, 76, n)
+    if kind == "near_degenerate":
+        a = 10 ** rng.uniform(-4, 1, n)
+        c = 10 ** rng.uniform(-4, 1, n)
+        b = rng.choice([-1, 1], n) * np.sqrt(a * c) * (1 - 10 ** rng.uniform(-8, -1, n))
+    elif kind == "garbage":
+        a, b, c = rng.normal(0, 1, (3, n))
+        bad = rng.uniform(size=(3, n)) < 0.1
+        a, b, c = (np.where(m, rng.choice([np.inf, -np.inf, np.nan], n), v)
+                   for m, v in zip(bad, (a, b, c)))
+    else:  # elongated: a covariance with eigenvalues 0.3 .. 1e4 px^2
+        lam = 10 ** rng.uniform(np.log10(0.3), 4, (2, n))
+        th = rng.uniform(0, np.pi, n)
+        cs, sn = np.cos(th), np.sin(th)
+        cxx = lam[0] * cs**2 + lam[1] * sn**2
+        cyy = lam[0] * sn**2 + lam[1] * cs**2
+        cxy = (lam[0] - lam[1]) * cs * sn
+        det = cxx * cyy - cxy**2
+        a, b, c = cyy / det, -cxy / det, cxx / det
+    if kind == "near_threshold":
+        opa = ALPHA_MIN * (1 + rng.choice([-1, 1], n) * 10 ** rng.uniform(-7, -1, n))
+    else:
+        opa = rng.choice([rng.uniform(0, 1, n), np.full(n, 0.999),
+                          rng.uniform(0, 2 * ALPHA_MIN, n)])
+    geo = np.zeros((8, n), np.float32)
+    geo[:6] = np.stack([x, y, a, b, c, opa]).astype(np.float32)
+    return geo, tx0, ty0
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(seed=st.integers(0, 2**32 - 1),
+       kind=st.sampled_from(["elongated", "near_degenerate", "near_threshold",
+                             "garbage"]))
+def test_warp_cull_is_conservative(seed, kind):
+    """No pixel that passes `_slot_quantities`' fp32 gate lies in a warp
+    strip (rows 2w, 2w+1) that the kernels' cull predicate clears: random,
+    elongated, near-degenerate and near-threshold conics and opacities."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    n = 256
+    geo, tx0, ty0 = _random_pairs(np.random.default_rng(seed), n, kind)
+    g = _t(geo)
+    p = torch.arange(256)
+    px = (tx0 + p % 16).float().expand(n, 256)
+    py = (ty0 + p // 16).float().expand(n, 256)
+    _, _, ok, *_ = cp._slot_quantities(g, torch.arange(n), torch.ones(n, dtype=torch.bool),
+                                       px, py, ALPHA_MIN)
+    mask = cp.warp_reach_plain(g, torch.full((n,), tx0), torch.full((n,), ty0))
+    kept = (mask[:, None] >> torch.arange(8)) & 1 == 1
+    missed = _warp_of_pixel_rows(ok) & ~kept
+    assert not missed.any(), f"{int(missed.sum())} culled (pair, warp) pass the gate"
+    if kind == "elongated":  # the cull is not vacuous
+        assert (~kept).any()
+
+
+def test_warp_cull_edges():
+    """Opacity below alpha_min (or NaN) reaches no warp; a conic that is not
+    finite or not positive definite reaches every warp; a small round
+    splat on pixel (5, 5) of its tile reaches rows 4-6 (warps 2 and 3), and
+    one below the tile reaches none."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    cols = np.array([
+        [5, 5, 1, 0, 1, ALPHA_MIN / 2],
+        [5, 5, 1, 0, 1, np.nan],
+        [5, 5, np.inf, 0, 1, 0.5],
+        [5, 5, 1, 2, 1, 0.5],
+        [5, 5, -1, 0, 1, 0.5],
+        [5, 5, 4, 0, 4, 0.5],
+        [5, 100, 4, 0, 4, 0.5],
+    ], np.float32).T
+    mask = cp.warp_reach_plain(_t(cols), torch.zeros(7), torch.zeros(7))
+    assert mask.tolist() == [0, 0, 0xFF, 0xFF, 0xFF, 0b1100, 0]
+
+
+def _kernel_warp_sum16(v):
+    """numpy float32 emulation of composite_bwd.cu::warp_sum16 on one warp:
+    v (32 lanes, 16 values); returns the value each even lane 2j writes
+    (value j)."""
+    lanes = np.arange(32)
+    x = v.astype(np.float32)
+    for off, half in ((16, 8), (8, 4), (4, 2), (2, 1)):
+        up = (lanes & off) != 0
+        keep = np.where(up[:, None], x[:, half:], x[:, :half])
+        send = np.where(up[:, None], x[:, :half], x[:, half:])
+        x = keep + send[lanes ^ off]
+    x = x[:, 0] + x[lanes ^ 1, 0]
+    return x[0::2]
+
+
+def test_transposed_butterfly_sums_as_block_sum():
+    """The backward's 16-value butterfly gives each value the bits of the
+    per-value xor tree that `_block_sum` repeats: sums of values of both
+    signs and wide magnitudes agree exactly."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    rng = np.random.default_rng(11)
+    for _ in range(20):
+        v = (rng.normal(size=(32, 16)) * 10 ** rng.uniform(-6, 6, (32, 16))
+             ).astype(np.float32)
+        got = _kernel_warp_sum16(v)
+        block = np.zeros((1, 256, 16), np.float32)
+        block[0, :32] = v
+        want = cp._block_sum(_t(block))[0].numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["pair_table", "latch4", "latch8"])
+def test_forward_latch_plane_is_the_rerun_drop_slot(pair_table, case):
+    """The plain forward's latch plane is the slot at which the plain
+    backward's rerun drops each pixel, and the transmittance after each
+    chunk that the rerun finds is the forward's tstarts[j + 1] (the final T
+    after the last chunk), bit for bit: the kernel backward starts each
+    chunk from these instead of running it forward again."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    if case == "pair_table":
+        geo, feat, starts, counts = (_t(a) for a in pair_table)
+        grid_w, chunk, max_chunks = GRID_W, CHUNK, MAX_CHUNKS
+    else:
+        geo, feat = (_t(a) for a in _latch_fixture())
+        starts = torch.zeros(1, dtype=torch.int32)
+        counts = torch.full((1,), 8, dtype=torch.int32)
+        grid_w, chunk = 1, int(case[5:])
+        max_chunks = 8 // chunk
+    out, trans, tstarts, latch = cp.composite_pairs_fwd_plain(
+        geo, feat, starts, counts, grid_w, TS, chunk, max_chunks, 3)
+    drop, t_after = cp.rerun_latch_plain(geo, starts, counts, tstarts, trans,
+                                         grid_w, TS, chunk, max_chunks)
+    assert torch.equal(latch, drop)
+    if case != "pair_table":  # (make_scene's opacities latch no pixel)
+        assert (latch >= 0).any()
+    nt = starts.shape[0]
+    cnt = cp.clamp_counts_to_live_chunks(counts, tstarts, chunk, max_chunks)
+    nch = ((cnt + chunk - 1) // chunk).tolist()
+    ts = tstarts.reshape(nt, max_chunks, -1)
+    ta = t_after.reshape(nt, max_chunks, -1)
+    for t in range(nt):
+        for j in range(nch[t]):
+            want = ts[t, j + 1] if j + 1 < nch[t] else trans[t]
+            assert torch.equal(ta[t, j], want), (t, j)
