@@ -8,9 +8,10 @@ step at bench width (100k Gaussians, 999x1000, 4 ring cameras) through
 `make_gaussian_train_step` with an f32 and a bf16 feature plane and with
 the 4 views stacked into one step, checks that each run went through its
 kernels, holds the kernel path against the XLA path (the port of
-scripts/tpu_parity_check.py), runs the precision probe, and prints the
-kernels' times beside their bounds. Exits non-zero on any failure, and when
-no CUDA device is present.
+scripts/tpu_parity_check.py), runs the precision probe, drives the
+Stage-I driver end to end on a USC-scale capture and resumes from its
+checkpoint, and prints the kernels' times beside their bounds. Exits
+non-zero on any failure, and when no CUDA device is present.
 
 Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
 versions (the forward's latch plane included), on the latch fixture, on
@@ -21,7 +22,11 @@ the chunks per tile, and each kernel's resident blocks per SM; 7 the bf16
 feature plane (kernels, then the bf16 train step); 8 view
 batches (small scene against the CPU, then the 4 bench views in one step);
 9 kernel path against XLA path at 20k Gaussians and 512x512; 10 the
-precision probe.
+precision probe; 11 the Stage-I driver (`drivers/train.py::training()`,
+1000 iterations, six densify events, one opacity reset) on a capture of
+10 000 strands x 100 points in 16 views at 1000x1000 that the port's
+`generate_dataset` renders on the card with the kernels, and a resume from
+its checkpoint.
 
     python3 chip_smoke.py
 
@@ -702,6 +707,247 @@ def check_probe(device):
             "library_ms": lib_ms}
 
 
+# phase 11: the Stage-I driver on a USC-scale scene
+USC_STRANDS = 10_000  # scripts/synthesize_usc_sample.py:65-67
+USC_POINTS = 100
+USC_CAMERAS = 16  # scripts/parse_usc_hairsalon.py:31-32
+USC_SIZE = 1000
+USC_SUBSAMPLE = 10  # the default init_subsample: 100k initial points
+GT_CHUNK = 128
+STAGE1_FLAGS = ["--iterations", "1000", "--position_lr_max_steps", "1000",
+                "--densify_from_iter", "100", "--densification_interval", "100",
+                "--densify_until_iter", "800", "--opacity_reset_interval", "500",
+                "--save_frequency", "1000", "--eval_frequency", "1000",
+                "--logger", "none"]
+
+
+class StageRecord:
+    """A logger for the driver (logging_utils.Logger's interface) that keeps,
+    per logged iteration, the host clock, the loss, the densification event
+    and the count, and the last evaluation."""
+
+    def __init__(self):
+        self.rows = []
+        self.eval = None
+
+    def log(self, info, model):
+        self.rows.append(dict(t=time.perf_counter(), it=info.iter, loss=info.loss,
+                              dens=dict(info.densification_info),
+                              topo_ms=info.topology_ms, count=model.count))
+        if info.image_metrics:
+            self.eval = (info.eval_metrics, info.eval_thresholds, info.image_metrics)
+
+    def close(self):
+        pass
+
+
+def gt_raster_cfg(device, hair, root):
+    """Tables for the GT renders that drop nothing: a sizing pass with a
+    deep per-tile cap and the worst-case table (its COLMAP points are the
+    strand roots, which changes no render), then the shallowest
+    power-of-two cap and the pair_capacity bucket (x1.25, 131072-slot
+    granule, as the driver's controller sizes it) that hold every view."""
+    from hairgs_tpu_torch.data.synthetic import generate_dataset
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+
+    def cfg(max_pairs, capacity):
+        return RasterConfig(max_tiles_per_gaussian=16, max_pairs_per_tile=max_pairs,
+                            chunk=GT_CHUNK, use_pallas=True, pair_capacity=capacity,
+                            viewspace_stats=False)
+
+    sizing = []
+    generate_dataset(root, hair, num_cameras=USC_CAMERAS, width=USC_SIZE,
+                     height=USC_SIZE, init_points="strand_roots",
+                     raster_cfg=cfg(32768, 0), device=device, overflow=sizing)
+    worst = {k: max(v[k] for v in sizing) for k in sizing[0]}
+    print(f"  sizing pass (max_pairs_per_tile 32768, worst-case table): worst "
+          f"over {len(sizing)} views {worst}")
+    if worst["overflow_pairs"] or worst["overflow_tiles"]:
+        fail(f"the GT sizing pass overflows: {worst}")
+    max_pairs = 2048
+    while max_pairs < worst["max_tile_count"]:
+        max_pairs *= 2
+    granule = 131072
+    capacity = -(-int(worst["pairs_demand"] * 1.25) // granule) * granule
+    return cfg(max_pairs, capacity)
+
+
+def stage1_driver(device):
+    """Phase 11: generate a USC-scale capture with the port's
+    generate_dataset on the card (GT views on the kernel path), run the
+    Stage-I driver's training() on it with STAGE1_FLAGS, check the run and
+    resume from its checkpoint. Returns a summary dict."""
+    import tempfile
+    from argparse import ArgumentParser
+
+    from hairgs_tpu_torch import config
+    from hairgs_tpu_torch.data.synthetic import generate_dataset, synthetic_test_hair
+    from hairgs_tpu_torch.drivers import train as driver
+    from hairgs_tpu_torch.io.dataset import read_colmap_scene_info
+    from hairgs_tpu_torch.ops.knn import mean_sq_dist_3nn
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.system import safe_state
+
+    configs = (config.ModelConfig, config.OptimizationConfig,
+               config.GeneralConfig, config.RuntimeConfig)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as tmp:
+        data = f"{tmp}/scene"
+        t0 = time.perf_counter()
+        hair = synthetic_test_hair(num_strands=USC_STRANDS,
+                                   points_per_strand=USC_POINTS, seed=0)
+        t_hair = time.perf_counter() - t0
+        cfg = gt_raster_cfg(device, hair, f"{tmp}/sizing")
+        overflow = []
+        t1 = time.perf_counter()
+        generate_dataset(data, hair, num_cameras=USC_CAMERAS, width=USC_SIZE,
+                         height=USC_SIZE, init_subsample=USC_SUBSAMPLE,
+                         raster_cfg=cfg, device=device, overflow=overflow)
+        t_data = time.perf_counter() - t1
+        worst = {k: max(v[k] for v in overflow) for k in overflow[0]}
+        print(f"  capture: {hair.verts.shape[0]} vertices, {hair.edges.shape[0]} GT "
+              f"segments, {USC_CAMERAS} views at {USC_SIZE}x{USC_SIZE}; strands "
+              f"{t_hair:.1f} s, dataset {t_data:.1f} s (kernel path, "
+              f"max_pairs_per_tile {cfg.max_pairs_per_tile}, pair_capacity "
+              f"{cfg.pair_capacity}, chunk {cfg.chunk}); worst over the views {worst}")
+        if worst["overflow_pairs"] or worst["overflow_tiles"] or worst["overflow_capacity"]:
+            fail(f"a GT render dropped pairs: {worst}")
+
+        pts = torch.tensor(read_colmap_scene_info(data).points, dtype=torch.float32,
+                           device=device)
+        mean_sq_dist_3nn(pts)  # warm-up
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        d2 = mean_sq_dist_3nn(pts)
+        torch.cuda.synchronize()
+        knn_ms = (time.perf_counter() - t2) * 1e3
+        print(f"  kNN init (mean_sq_dist_3nn): {knn_ms:.3f} ms for {pts.shape[0]} "
+              f"points (median mean sq 3-NN distance {d2.median().item():.3e} m^2)")
+        del pts, d2
+
+        parser = ArgumentParser()
+        for c in configs:
+            config.add_config_args(parser, c)
+        argv = ["-s", data, "-m", f"{tmp}/model", *STAGE1_FLAGS]
+        args = parser.parse_args(argv)
+        driver.prepare_output_path(args)
+        record = StageRecord()
+        stdout = sys.stdout
+        torch.cuda.reset_peak_memory_stats()
+        cp.reset_launches()
+        try:
+            # the driver's own seeding (timestamped stdout until restored)
+            safe_state(False, seed=0)
+            t3 = time.perf_counter()
+            scene, model = driver.training(
+                *(config.extract_config(args, c) for c in configs), args,
+                logger=record)
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t3
+        finally:
+            sys.stdout = stdout
+        launches = dict(cp.launches)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory of the run {peak / 2**30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated)")
+        summary = check_stage1(record, scene, model, launches, t_train, args,
+                               parser.parse_args(argv))
+        return dict(summary, dataset_s=t_data, knn_ms=knn_ms,
+                    gt_max_pairs_per_tile=cfg.max_pairs_per_tile,
+                    gt_pair_capacity=cfg.pair_capacity, gt_worst=worst,
+                    peak_gib=peak / 2**30)
+
+
+def check_stage1(record, scene, model, launches, t_train, args, resume_args):
+    """Print phase 11's numbers, fail() on a broken run, and resume from
+    the run's checkpoint: a new Scene on the model directory must hold the
+    same parameters and render one view bit for bit as the trained model."""
+    import random
+
+    from hairgs_tpu_torch.evaluation.metrics import format_metric_table
+    from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
+    from hairgs_tpu_torch.render.renderer import RasterConfig, render
+    from hairgs_tpu_torch.scene import Scene
+
+    rows = record.rows
+    n_steps = rows[-1]["it"]
+    n_views = len(scene.get_cameras())
+    events = [r for r in rows if r["dens"]]
+    print(f"  initial count {rows[0]['count']}; {n_steps} steps in {t_train:.1f} s "
+          f"({n_steps / t_train:.3f} it/s over the whole call of training(), "
+          f"scene load, evaluations and densification included)")
+    for r in events:
+        d = r["dens"]
+        print(f"  densify at iter {r['it']}: {r['topo_ms']:.1f} ms, clone "
+              f"{d['clone']} split {d['split']} prune {d['prune_total']} "
+              f"(low opacity {d['prune_low_opacity']}, world size "
+              f"{d.get('prune_big_ws', '-')}) -> {r['count']}")
+    # step times per stretch between events, from the logger's host clock:
+    # the driver reads the metrics every log_interval steps, which drains
+    # the launch queue, so a stretch's mean is its throughput
+    bounds = [0] + [r["it"] for r in events] + [n_steps]
+    stretches = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        dts = [(rows[i]["t"] - rows[i - 1]["t"]) * 1e3 for i in range(lo + 1, hi)]
+        if dts:
+            stretches.append((lo + 1, hi - 1, float(np.mean(dts)), float(np.median(dts))))
+            print(f"  steps {lo + 1}-{hi - 1}: mean {stretches[-1][2]:.3f} ms, "
+                  f"median {stretches[-1][3]:.3f} ms")
+    losses = [(r["it"], r["loss"]) for r in rows if r["loss"] is not None]
+    print(f"  loss at the first sync (iter {losses[0][0]}) {losses[0][1]:.6f}, at "
+          f"iter {losses[-1][0]} {losses[-1][1]:.6f}; {len(losses)} syncs")
+    print(f"  launches over the run: {launches}")
+    metrics, thresholds, image = record.eval
+    print("  final strand metrics (on the host, evaluation/metrics.py):")
+    for line in format_metric_table(metrics, thresholds).splitlines():
+        print("    " + line)
+    print(f"  image metrics over the {n_views} views: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in image.items()))
+
+    if not all(np.isfinite(loss) for _, loss in losses) or \
+            not all(torch.isfinite(p).all() for p in model.params):
+        fail("non-finite loss or parameters in the Stage-I run")
+    if len(events) != 6:
+        fail(f"expected 6 densify events, got {len(events)}")
+    if min(r["count"] for r in rows) == 0:
+        fail("the Gaussian count fell to 0")
+    fwd = launches["composite_fwd"]
+    bwd = launches["composite_bwd"] + launches["composite_bwd_nostats"]
+    if fwd != n_steps + n_views or bwd != n_steps:
+        fail(f"expected {n_steps + n_views} forward and {n_steps} backward "
+             f"launches, got {launches}")
+    if launches["composite_bwd_nostats"] == 0:
+        fail("no backward without stats after the densify window closed")
+    if not losses[-1][1] < losses[0][1]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    random.seed(0)
+    again = Scene(resume_args, capacity_round=args.capacity_round)
+    if again.loaded_iter != n_steps:
+        fail(f"resume loaded iteration {again.loaded_iter}, not {n_steps}")
+    same = all(torch.equal(a, b) for a, b in zip(again.gaussians.params, model.params))
+    cam = again.get_cameras()[0]
+    cfg = RasterConfig(max_tiles_per_gaussian=args.max_tiles_per_gaussian,
+                       max_pairs_per_tile=args.max_pairs_per_tile,
+                       chunk=args.composite_chunk, use_pallas=True,
+                       viewspace_stats=False)
+    with torch.no_grad():
+        imgs = [render(cam, **gaussian_render_inputs(m.params, cam.cam_center,
+                                                     m.active_sh_degree),
+                       active=m.active, width=cam.width, height=cam.height,
+                       config=cfg)["render"] for m in (model, again.gaussians)]
+    equal = torch.equal(*imgs)
+    print(f"  resume: loaded iteration {again.loaded_iter}, {again.gaussians.count} "
+          f"Gaussians, parameters bit-equal {same}, view render bit-equal {equal}")
+    if not (same and equal):
+        fail("the resumed model differs from the trained one")
+    return dict(steps=n_steps, seconds=t_train, launches=launches,
+                stretches=stretches, initial_count=rows[0]["count"],
+                final_count=model.count, loss_first=losses[0],
+                loss_last=losses[-1], image_metrics=image,
+                f1=[float(x) for x in next(v for k, v in metrics.items()
+                                           if k.startswith("f1"))])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -949,6 +1195,11 @@ def main():
     probe_entry = check_probe(device)
     print(f"  phases 7-10: {time.perf_counter() - t_phase:.1f} s")
 
+    print("phase 11: the Stage-I driver on a USC-scale scene")
+    t_phase = time.perf_counter()
+    stage1 = stage1_driver(device)
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
         {"name": "composite_fwd", "route": "cuda", "source": src + "composite_fwd.cu",
@@ -979,7 +1230,7 @@ def main():
     print(json.dumps({"step_ms": ms_step, "it_per_s": n_timed / dt,
                       "host_median_step_ms": median_ms,
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
-                      "card": smi}))
+                      "stage1_driver": stage1, "card": smi}))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ from hairgs_tpu_torch.core.sh import RGB2SH
 from hairgs_tpu_torch.models.gaussian import (
     GaussianParams,
     GaussianStats,
+    _round_capacity,
     params_from_numpy,
 )
 from hairgs_tpu_torch.optim import AdamState, adam_init
@@ -35,10 +36,6 @@ class BenchScene(NamedTuple):
     width: int
     height: int
     count: int
-
-
-def _round_capacity(n: int, bucket: int) -> int:
-    return max(bucket, ((n + bucket - 1) // bucket) * bucket)
 
 
 def build_bench_scene(n_gaussians=100_000, width=999, height=1000, seed=0,

@@ -1,0 +1,517 @@
+#!/usr/bin/env python
+"""Stage-I training driver (counterpart of the root train.py).
+
+    python3 -m hairgs_tpu_torch.drivers.train -s <scene> -m <out> [flags]
+
+Same flag surface and `cfg_args` persistence as train.py, same schedule:
+a random camera per step (popped from a shuffled stack), SH degree bump
+every 1000 iterations, densify in (densify_from_iter, densify_until_iter]
+every densification_interval (with the world-size prune after the first
+opacity reset), opacity reset every opacity_reset_interval, the
+densification-statistics rows dropped from the compositor backward once the
+densify window closes, metric syncs only at the logging cadence, checkpoint
+every save_frequency and eval at eval_frequency and at the end.
+
+The model and cameras live on `--data_device` (default "cuda"); with
+`--use_pallas auto` a CUDA device takes the paged path, whose compositor
+passes are the hand-written kernels, and the CPU takes the XLA path. The
+three adaptive controllers resize the pair table between steps; in torch a
+new size costs no recompilation. Not ported yet, each named where it
+raises: the hair model (Stage III, ROADMAP Queue 1 item 6), device-side
+in-training metrics (item 7), the viewer and visualisations (item 8) and
+Gaussian-axis sharding (item 9).
+"""
+
+import os
+import random
+import sys
+import time
+import uuid
+from argparse import ArgumentParser
+
+import numpy as np
+import torch
+
+from hairgs_tpu_torch.config import (
+    GeneralConfig,
+    ModelConfig,
+    OptimizationConfig,
+    RuntimeConfig,
+    add_config_args,
+    extract_config,
+    load_cfg_args,
+    save_cfg_args,
+)
+
+
+class TileBudgetController:
+    """Adaptive per-gaussian tile budget (train.py:36-68).
+
+    The fixed-shape pair table caps tiles-per-gaussian. This controller
+    grows the cap (x2 up to `cap`) when a sync observes >`grow_frac` of the
+    pair budget truncated, and shrinks it back toward the configured base
+    after `shrink_after` consecutive overflow-free syncs.
+    """
+
+    def __init__(self, base, cap=64, grow_frac=0.01, shrink_after=20):
+        self.base = base
+        self.cap = cap
+        self.grow_frac = grow_frac
+        self.shrink_after = shrink_after
+        self.clean_syncs = 0
+
+    def update(self, overflow_pairs, n_prims, budget):
+        """Returns the new budget, or None when no change is needed."""
+        if overflow_pairs > self.grow_frac * n_prims * budget and budget < self.cap:
+            self.clean_syncs = 0
+            return min(budget * 2, self.cap)
+        if overflow_pairs == 0:
+            self.clean_syncs += 1
+            if self.clean_syncs >= self.shrink_after and budget > self.base:
+                self.clean_syncs = 0
+                return budget // 2
+        else:
+            self.clean_syncs = 0
+        return None
+
+
+class PairCapacityController:
+    """Adaptive compact pair-table sizing (RasterConfig.pair_capacity;
+    train.py:71-108): grow immediately on any capacity truncation
+    (truncated pairs get no gradient), shrink only after `shrink_after`
+    consecutive syncs of <50% occupancy."""
+
+    def __init__(self, granule, headroom=1.25, shrink_after=50):
+        self.granule = granule
+        self.headroom = headroom
+        self.shrink_after = shrink_after
+        self.low_syncs = 0
+
+    def bucket(self, demand):
+        want = int(demand * self.headroom)
+        return ((want + self.granule - 1) // self.granule) * self.granule
+
+    def update(self, overflow_capacity, pairs_demand, capacity):
+        """Returns the new capacity, or None when no change is needed."""
+        if overflow_capacity > 0:
+            self.low_syncs = 0
+            return max(self.bucket(pairs_demand), capacity + self.granule)
+        if pairs_demand < 0.5 * capacity:
+            self.low_syncs += 1
+            if self.low_syncs >= self.shrink_after:
+                self.low_syncs = 0
+                new = self.bucket(pairs_demand)
+                if new < capacity - self.granule:
+                    return new
+        else:
+            self.low_syncs = 0
+        return None
+
+
+class TilePairCapController:
+    """Adaptive per-tile pair cap (RasterConfig.max_pairs_per_tile;
+    train.py:111-145): x2 (a multiple of the chunk stays one) whenever a
+    sync drops more than `grow_frac` of the step's real pair demand, back
+    toward the base after `shrink_after` consecutive clean syncs."""
+
+    def __init__(self, base, cap=8192, grow_frac=0.001, shrink_after=50):
+        self.base = base
+        self.cap = cap
+        self.grow_frac = grow_frac
+        self.shrink_after = shrink_after
+        self.clean_syncs = 0
+
+    def update(self, overflow_tiles, pairs_demand, max_pairs):
+        """Returns the new per-tile cap, or None when no change is needed."""
+        if (overflow_tiles > self.grow_frac * max(pairs_demand, 1)
+                and max_pairs < self.cap):
+            self.clean_syncs = 0
+            return min(max_pairs * 2, self.cap)
+        if overflow_tiles == 0:
+            self.clean_syncs += 1
+            if self.clean_syncs >= self.shrink_after and max_pairs > self.base:
+                self.clean_syncs = 0
+                return max_pairs // 2
+        else:
+            self.clean_syncs = 0
+        return None
+
+
+def prepare_output_path(args):
+    """utils/system.py:41-54 — default ./output/<uuid>, persist cfg_args."""
+    if not args.model_path:
+        args.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
+    print(f"Output folder: {args.model_path}")
+    os.makedirs(args.model_path, exist_ok=True)
+    save_cfg_args(args.model_path, args)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _pull_metrics(metrics) -> dict:
+    """The step's scalar metrics on the host, in one transfer."""
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].detach().reshape(()).to(torch.float64)
+                        for k in keys]).tolist()
+    return dict(zip(keys, vals))
+
+
+def training(mp, op, gp, rt, args, logger=None):
+    """The Stage-I loop; returns (scene, model). `logger` (a
+    logging_utils.Logger) replaces the one `--logger` selects."""
+    from hairgs_tpu_torch import resolve_device
+    from hairgs_tpu_torch.core.camera import stack_cameras
+    from hairgs_tpu_torch.evaluation.eval_data import compute_eval_data_from_gaussian
+    from hairgs_tpu_torch.evaluation.image_metrics import evaluate_image_metrics
+    from hairgs_tpu_torch.evaluation.metrics import compute_metrics
+    from hairgs_tpu_torch.logging_utils import Logger, TrainingInfo, get_logger
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.scene import Scene
+    from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+
+    if rt.gauss_shard > 1:
+        raise NotImplementedError(
+            "--gauss_shard > 1 needs the port of parallel/slab.py "
+            "(ROADMAP Queue 1 item 9)")
+    if rt.device_eval == "true":
+        raise NotImplementedError(
+            "--device_eval true needs the port of evaluation/device_metrics.py "
+            "(ROADMAP Queue 1 item 7); 'auto' evaluates on the host")
+    device = resolve_device(mp.data_device)
+    scene = Scene(args, shuffle=True, capacity_round=rt.capacity_round)
+    model = scene.gaussians
+    model.training_setup(op)
+    logger = get_logger(args) if logger is None else logger
+    info = TrainingInfo(iter=scene.loaded_iter)
+
+    cameras = scene.get_cameras()
+    height, width = cameras[0].height, cameras[0].width
+    use_pallas = rt.use_pallas
+    if use_pallas == "auto":
+        use_pallas = device.type == "cuda"
+    pallas_on = bool(use_pallas) and use_pallas != "false"
+    if pallas_on and rt.max_pairs_per_tile % rt.composite_chunk:
+        # fail at startup, not after the scene load
+        raise ValueError(f"max_pairs_per_tile ({rt.max_pairs_per_tile}) must "
+                         f"be a multiple of composite_chunk ({rt.composite_chunk})")
+
+    num_tiles = (((width + 15) // 16) * ((height + 15) // 16))
+    cap_ctl = PairCapacityController(rt.pair_capacity_round)
+    # the densification-statistics rows of the compositor backward are only
+    # read by densification events: they are dropped once the densify
+    # window is closed
+    stats_enabled = op.densify_until_iter > 1
+
+    def initial_pair_capacity():
+        if rt.pair_capacity < 0:
+            return 0  # worst-case n*max_tiles sizing, never truncates
+        if rt.pair_capacity > 0:
+            return rt.pair_capacity
+        # adaptive start: ~3 surviving tiles/prim + the per-tile chunk pad
+        # floor; the controller re-buckets from measured demand after the
+        # first sync
+        est = 3 * model.capacity + (num_tiles + 1) * rt.composite_chunk
+        return cap_ctl.bucket(est / cap_ctl.headroom)
+
+    def make_raster_cfg(max_tiles, pair_cap=None, max_pairs=None):
+        max_pairs = rt.max_pairs_per_tile if max_pairs is None else max_pairs
+        return RasterConfig(
+            max_tiles_per_gaussian=max_tiles,
+            max_pairs_per_tile=max_pairs,
+            chunk=rt.composite_chunk,
+            use_pallas=pallas_on,
+            feat_bf16=rt.feat_bf16,
+            antialiasing=rt.antialiasing,
+            alpha_min=rt.alpha_min,
+            viewspace_stats=stats_enabled,
+            dma_lookahead=rt.dma_lookahead and pallas_on,
+            # compact tables only exist on the paged path; the XLA path
+            # ignores them
+            pair_capacity=((initial_pair_capacity() if pallas_on else 0)
+                           if pair_cap is None else pair_cap),
+        )
+
+    raster_cfg = make_raster_cfg(rt.max_tiles_per_gaussian)
+
+    if gp.ip or gp.vis2d or gp.vis3d:
+        print("[gui] the network viewer and the 2D/3D visualisations are not "
+              "ported yet (ROADMAP Queue 1 item 8); off")
+    if rt.async_topology and not gp.quiet:
+        print("[topo] --async_topology applies to hair models only; ignored")
+
+    def run_eval():
+        if scene.gt is None:
+            return None, None
+        pred = compute_eval_data_from_gaussian(model)
+        info.pred = pred
+        return compute_metrics(pred=pred, gt=scene.gt, bidirectional=op.bidirectional_eval)
+
+    def run_image_eval():
+        info.image_metrics = evaluate_image_metrics(model, cameras, config=raster_cfg)
+        if info.image_metrics and not gp.quiet:
+            parts = "  ".join(f"{k} {v:.3f}" for k, v in info.image_metrics.items())
+            print(f"[eval] iter {info.iter}: {parts}")
+
+    info.eval_metrics, info.eval_thresholds = run_eval()
+    logger.log(info, model)
+
+    # view batches: a K-view step advances the iteration counter by K, so
+    # every cadence and the number of views seen match K reference
+    # iterations; gradients are the view mean, statistics count per view
+    view_batch = max(1, rt.view_batch)
+    if view_batch > 1:
+        print(f"[parallel] view_batch={view_batch} on one device ({device})")
+
+    def build_step():
+        return make_gaussian_train_step(
+            op, raster_cfg, width=width, height=height,
+            active_sh_degree=model.active_sh_degree,
+            spatial_lr_scale=model.spatial_lr_scale, device=device)
+
+    step_fn = build_step()
+
+    profile_dir = os.path.join(args.model_path, "profile")
+    profiler = None
+
+    def stop_profiler():
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.stop()
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        print(f"[profile] trace written to {profile_dir}")
+
+    def check_finite(loss, iteration):
+        if rt.debug and not np.isfinite(loss):
+            dump = os.path.join(args.model_path, f"snapshot_iter{iteration}.npz")
+            model.save_checkpoint(dump)
+            raise FloatingPointError(
+                f"non-finite loss {loss} at iteration {iteration}; state dumped"
+                f" to {dump}"
+            )
+
+    viewpoint_stack = []
+    ema_loss = 0.0
+    logging_active = type(logger) is not Logger
+    report_interval = 50
+    rt.log_interval = max(1, rt.log_interval)
+    budget_ctl = TileBudgetController(rt.max_tiles_per_gaussian)
+    tilecap_ctl = TilePairCapController(rt.max_pairs_per_tile)
+    start_time = time.time()
+    iteration = 0
+    prev_iter = 0
+    step_count = 0
+
+    def crossed(interval):
+        """Did this step cross an interval boundary? For view_batch=1 this is
+        exactly `iteration % interval == 0`; for K>1 each boundary fires once."""
+        return iteration // interval > prev_iter // interval
+
+    while iteration < op.iterations:
+        prev_iter = iteration
+        iteration += view_batch
+        step_count += 1
+        if rt.profile_steps > 0:
+            if step_count == 2:  # skip the first step
+                profiler = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if device.type == "cuda" else [])])
+                profiler.start()
+            elif profiler is not None and step_count == 2 + rt.profile_steps:
+                stop_profiler()
+                profiler = None
+        info.iter = scene.loaded_iter + iteration
+        info.densification_info = {}
+        info.topology_ms = None
+
+        if crossed(1000) and model.active_sh_degree < model.max_sh_degree:
+            model.oneup_sh_degree()
+            step_fn = build_step()
+
+        # drop the densification-statistics rows from the compositor
+        # backward once the densify window closes
+        if (stats_enabled and raster_cfg.use_pallas
+                and iteration >= op.densify_until_iter):
+            stats_enabled = False
+            raster_cfg = make_raster_cfg(raster_cfg.max_tiles_per_gaussian,
+                                         raster_cfg.pair_capacity,
+                                         raster_cfg.max_pairs_per_tile)
+            step_fn = build_step()
+            if not gp.quiet:
+                print(f"[raster] iter {iteration}: densify window closed — "
+                      "dropping viewspace-stats rows from the backward")
+
+        cams_step = []
+        for _ in range(view_batch):
+            if not viewpoint_stack:
+                viewpoint_stack = list(cameras)
+            cams_step.append(
+                viewpoint_stack.pop(random.randint(0, len(viewpoint_stack) - 1))
+            )
+        cam = cams_step[0]
+        cam_input = stack_cameras(cams_step) if view_batch > 1 else cam
+
+        t0 = time.time()
+        model.params, model.stats, model.opt_state, metrics, image = step_fn(
+            model.params, model.stats, model.opt_state, model.active,
+            cam_input, iteration)
+        info.elapsed_time = (time.time() - t0) * 1000.0
+
+        # a host read waits for the device: only at the logging cadence
+        sync_now = (
+            (logging_active and crossed(rt.log_interval))
+            or crossed(report_interval)
+            or iteration >= op.iterations
+        )
+        if sync_now:
+            m = _pull_metrics(metrics)
+            loss = m["loss"]
+            check_finite(loss, iteration)
+            info.loss = loss
+            info.loss_dict = {k[5:]: v for k, v in m.items() if k.startswith("loss/")}
+            info.train_psnr = m["psnr"]
+            ema_loss = 0.4 * loss + 0.6 * ema_loss
+
+            n_prims = model.count
+            overflow_pairs = int(m["overflow_pairs"])
+            # overflow counters are summed over the K views of a step;
+            # scale the per-view budget test accordingly
+            new_budget = None if rt.freeze_tile_budget else budget_ctl.update(
+                overflow_pairs, n_prims * view_batch,
+                raster_cfg.max_tiles_per_gaussian
+            )
+            if new_budget is not None:
+                verb = ("raising" if new_budget > raster_cfg.max_tiles_per_gaussian
+                        else "shrinking")
+                print(f"[raster] iter {iteration}: {overflow_pairs} truncated "
+                      f"pairs — {verb} max_tiles_per_gaussian to {new_budget}")
+                raster_cfg = make_raster_cfg(new_budget,
+                                             raster_cfg.pair_capacity,
+                                             raster_cfg.max_pairs_per_tile)
+                step_fn = build_step()
+                # persist the converged budget for a resumed run
+                args.max_tiles_per_gaussian = new_budget
+                save_cfg_args(args.model_path, args)
+            # compact pair-table capacity: grow immediately on truncation,
+            # shrink on sustained low occupancy
+            overflow_cap = int(m.get("overflow_capacity", 0))
+            demand = int(m.get("pairs_demand", 0))
+            if (rt.pair_capacity == 0 and raster_cfg.pair_capacity > 0
+                    and raster_cfg.use_pallas):
+                new_cap = cap_ctl.update(overflow_cap, demand,
+                                         raster_cfg.pair_capacity)
+                if new_cap is not None:
+                    verb = "raising" if new_cap > raster_cfg.pair_capacity \
+                        else "shrinking"
+                    print(f"[raster] iter {iteration}: pair demand {demand} "
+                          f"(capacity-truncated {overflow_cap}) — {verb} "
+                          f"pair_capacity to {new_cap}")
+                    raster_cfg = make_raster_cfg(
+                        raster_cfg.max_tiles_per_gaussian, new_cap,
+                        raster_cfg.max_pairs_per_tile)
+                    step_fn = build_step()
+            overflow_tiles = int(m["overflow_tiles"])
+            # per-tile pair cap: grow on sustained tile-cap drops, shrink
+            # back after a long clean streak
+            new_mp = None if rt.freeze_tile_budget else tilecap_ctl.update(
+                overflow_tiles, demand, raster_cfg.max_pairs_per_tile)
+            if new_mp is not None:
+                verb = ("raising" if new_mp > raster_cfg.max_pairs_per_tile
+                        else "shrinking")
+                print(f"[raster] iter {iteration}: {overflow_tiles} tile-cap "
+                      f"dropped pairs — {verb} max_pairs_per_tile to {new_mp}")
+                raster_cfg = make_raster_cfg(
+                    raster_cfg.max_tiles_per_gaussian,
+                    raster_cfg.pair_capacity, new_mp)
+                step_fn = build_step()
+                args.max_pairs_per_tile = new_mp
+                save_cfg_args(args.model_path, args)
+            overflow = overflow_tiles + overflow_pairs + overflow_cap
+            if overflow and not gp.quiet:
+                print(f"[warn] iter {iteration}: {overflow} binning overflows "
+                      f"({overflow_pairs} pair-budget, {overflow_tiles} "
+                      f"tile-cap, {overflow_cap} capacity)")
+            if not gp.quiet and crossed(100):
+                print(f"iter {iteration:6d}  loss {ema_loss:.5f}  "
+                      f"psnr {info.train_psnr:.2f}  "
+                      f"prims {n_prims}  {info.elapsed_time:.1f} ms")
+        else:
+            # don't re-log stale scalars on non-sync iterations
+            info.loss = None
+            info.loss_dict = None
+            info.train_psnr = None
+
+        # --- topology cadence (train.py:171-200)
+        if iteration < op.densify_until_iter:
+            if iteration > op.densify_from_iter and crossed(op.densification_interval):
+                size_th = op.prune_max_radii_2d if iteration > op.opacity_reset_interval else None
+                _sync(device)
+                t_topo = time.perf_counter()
+                model.densification(scene.cameras_extent, size_th, info)
+                _sync(device)
+                info.topology_ms = (time.perf_counter() - t_topo) * 1e3
+                if not gp.quiet:
+                    print(f"[densify] iter {iteration}: {info.densification_info}"
+                          f" -> {model.count} Gaussians in {info.topology_ms:.1f} ms")
+            if crossed(op.opacity_reset_interval):
+                model.reset_opacity()
+                if not gp.quiet:
+                    print(f"[densify] iter {iteration}: opacity reset")
+        # the 2D grid of the visualisations is not ported (ROADMAP Queue 1
+        # item 8)
+        info.composed_image = None
+
+        # --- eval / log / save
+        if crossed(gp.eval_frequency) or iteration >= op.iterations:
+            if scene.gt is not None:
+                info.eval_metrics, info.eval_thresholds = run_eval()
+            run_image_eval()
+        else:
+            info.image_metrics = None
+        logger.log(info, model)
+        if crossed(gp.save_frequency) or iteration >= op.iterations:
+            path = scene.save(iteration)
+            print(f"\n[ITER {iteration}] Saved scene to {path}")
+
+    if profiler is not None:
+        stop_profiler()
+    total = time.time() - start_time
+    print(f"Training completed in {total:.1f}s "
+          f"({iteration / max(total, 1e-9):.2f} it/s, "
+          f"{step_count / max(total, 1e-9):.2f} steps/s)")
+    logger.close()
+    return scene, model
+
+
+def main(argv=None):
+    parser = ArgumentParser(description="Training script parameters")
+    add_config_args(parser, ModelConfig)
+    add_config_args(parser, OptimizationConfig)
+    add_config_args(parser, GeneralConfig)
+    add_config_args(parser, RuntimeConfig)
+    argv = sys.argv[1:] if argv is None else argv
+    args = parser.parse_args(argv)
+    # resume: adopt a previously persisted (converged) tile budget unless the
+    # flag was given explicitly on this command line
+    stored = load_cfg_args(args.model_path) if args.model_path else None
+    if (stored is not None
+            and hasattr(stored, "max_tiles_per_gaussian")
+            and not any(a.startswith("--max_tiles_per_gaussian") for a in argv)):
+        args.max_tiles_per_gaussian = stored.max_tiles_per_gaussian
+    prepare_output_path(args)
+    from hairgs_tpu_torch.system import safe_state
+
+    safe_state(getattr(args, "quiet", False))
+    return training(
+        extract_config(args, ModelConfig),
+        extract_config(args, OptimizationConfig),
+        extract_config(args, GeneralConfig),
+        extract_config(args, RuntimeConfig),
+        args,
+    )
+
+
+if __name__ == "__main__":
+    main()

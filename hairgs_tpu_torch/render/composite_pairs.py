@@ -54,9 +54,11 @@ MAX_KERNEL_CHANNELS = 8
 FEAT_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 # launches of each hand-written kernel, per feature dtype; a wrapper adds
-# one where it launches
+# one where it launches. The backward without the statistics rows (its
+# other template instance) counts under its own "_nostats" key
 launches = {"composite_fwd": 0, "composite_bwd": 0,
-            "composite_fwd_bf16": 0, "composite_bwd_bf16": 0}
+            "composite_fwd_bf16": 0, "composite_bwd_bf16": 0,
+            "composite_bwd_nostats": 0, "composite_bwd_bf16_nostats": 0}
 
 
 def reset_launches():
@@ -469,7 +471,7 @@ def composite_pairs_bwd_cuda(geo, feat, starts, counts, tstarts, latch, trans,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
+    launches[name if with_stats else name + "_nostats"] += 1
     return d_geo, d_feat
 
 
