@@ -10,8 +10,10 @@ the 4 views stacked into one step, checks that each run went through its
 kernels, holds the kernel path against the XLA path (the port of
 scripts/tpu_parity_check.py), runs the precision probe, drives the
 Stage-I driver end to end on a USC-scale capture and resumes from its
-checkpoint, and prints the kernels' times beside their bounds. Exits
-non-zero on any failure, and when no CUDA device is present.
+checkpoint, then runs Stage II (the merge driver), Stage III (the train
+driver on the strand graph) and the eval driver on that capture, and
+prints the kernels' times beside their bounds. Exits non-zero on any
+failure, and when no CUDA device is present.
 
 Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
 versions (the forward's latch plane included), on the latch fixture, on
@@ -26,7 +28,12 @@ precision probe; 11 the Stage-I driver (`drivers/train.py::training()`,
 1000 iterations, six densify events, one opacity reset) on a capture of
 10 000 strands x 100 points in 16 views at 1000x1000 that the port's
 `generate_dataset` renders on the card with the kernels, and a resume from
-its checkpoint.
+its checkpoint; 12 the hair model's loss and gradients on the card against
+the CPU (smoothness and magnet terms), the merge driver on phase 11's
+model (`drivers/merge.py::main`), 500 Stage-III iterations of
+`drivers/train.py::training()` on the merged strands (3 densify events, 5
+merges, 1 growth, the densify window closing at 400), a resume, and the
+eval driver (`drivers/eval.py::main`) on the final PLY.
 
     python3 chip_smoke.py
 
@@ -39,6 +46,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -772,12 +780,12 @@ def gt_raster_cfg(device, hair, root):
     return cfg(max_pairs, capacity)
 
 
-def stage1_driver(device):
+def stage1_driver(device, tmp):
     """Phase 11: generate a USC-scale capture with the port's
-    generate_dataset on the card (GT views on the kernel path), run the
-    Stage-I driver's training() on it with STAGE1_FLAGS, check the run and
-    resume from its checkpoint. Returns a summary dict."""
-    import tempfile
+    generate_dataset on the card (GT views on the kernel path) in
+    `tmp`/scene, run the Stage-I driver's training() on it with
+    STAGE1_FLAGS into `tmp`/model, check the run and resume from its
+    checkpoint. Returns a summary dict."""
     from argparse import ArgumentParser
 
     from hairgs_tpu_torch import config
@@ -790,71 +798,70 @@ def stage1_driver(device):
 
     configs = (config.ModelConfig, config.OptimizationConfig,
                config.GeneralConfig, config.RuntimeConfig)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_stage1_") as tmp:
-        data = f"{tmp}/scene"
-        t0 = time.perf_counter()
-        hair = synthetic_test_hair(num_strands=USC_STRANDS,
-                                   points_per_strand=USC_POINTS, seed=0)
-        t_hair = time.perf_counter() - t0
-        cfg = gt_raster_cfg(device, hair, f"{tmp}/sizing")
-        overflow = []
-        t1 = time.perf_counter()
-        generate_dataset(data, hair, num_cameras=USC_CAMERAS, width=USC_SIZE,
-                         height=USC_SIZE, init_subsample=USC_SUBSAMPLE,
-                         raster_cfg=cfg, device=device, overflow=overflow)
-        t_data = time.perf_counter() - t1
-        worst = {k: max(v[k] for v in overflow) for k in overflow[0]}
-        print(f"  capture: {hair.verts.shape[0]} vertices, {hair.edges.shape[0]} GT "
-              f"segments, {USC_CAMERAS} views at {USC_SIZE}x{USC_SIZE}; strands "
-              f"{t_hair:.1f} s, dataset {t_data:.1f} s (kernel path, "
-              f"max_pairs_per_tile {cfg.max_pairs_per_tile}, pair_capacity "
-              f"{cfg.pair_capacity}, chunk {cfg.chunk}); worst over the views {worst}")
-        if worst["overflow_pairs"] or worst["overflow_tiles"] or worst["overflow_capacity"]:
-            fail(f"a GT render dropped pairs: {worst}")
+    data = f"{tmp}/scene"
+    t0 = time.perf_counter()
+    hair = synthetic_test_hair(num_strands=USC_STRANDS,
+                               points_per_strand=USC_POINTS, seed=0)
+    t_hair = time.perf_counter() - t0
+    cfg = gt_raster_cfg(device, hair, f"{tmp}/sizing")
+    overflow = []
+    t1 = time.perf_counter()
+    generate_dataset(data, hair, num_cameras=USC_CAMERAS, width=USC_SIZE,
+                     height=USC_SIZE, init_subsample=USC_SUBSAMPLE,
+                     raster_cfg=cfg, device=device, overflow=overflow)
+    t_data = time.perf_counter() - t1
+    worst = {k: max(v[k] for v in overflow) for k in overflow[0]}
+    print(f"  capture: {hair.verts.shape[0]} vertices, {hair.edges.shape[0]} GT "
+          f"segments, {USC_CAMERAS} views at {USC_SIZE}x{USC_SIZE}; strands "
+          f"{t_hair:.1f} s, dataset {t_data:.1f} s (kernel path, "
+          f"max_pairs_per_tile {cfg.max_pairs_per_tile}, pair_capacity "
+          f"{cfg.pair_capacity}, chunk {cfg.chunk}); worst over the views {worst}")
+    if worst["overflow_pairs"] or worst["overflow_tiles"] or worst["overflow_capacity"]:
+        fail(f"a GT render dropped pairs: {worst}")
 
-        pts = torch.tensor(read_colmap_scene_info(data).points, dtype=torch.float32,
-                           device=device)
-        mean_sq_dist_3nn(pts)  # warm-up
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        d2 = mean_sq_dist_3nn(pts)
-        torch.cuda.synchronize()
-        knn_ms = (time.perf_counter() - t2) * 1e3
-        print(f"  kNN init (mean_sq_dist_3nn): {knn_ms:.3f} ms for {pts.shape[0]} "
-              f"points (median mean sq 3-NN distance {d2.median().item():.3e} m^2)")
-        del pts, d2
+    pts = torch.tensor(read_colmap_scene_info(data).points, dtype=torch.float32,
+                       device=device)
+    mean_sq_dist_3nn(pts)  # warm-up
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    d2 = mean_sq_dist_3nn(pts)
+    torch.cuda.synchronize()
+    knn_ms = (time.perf_counter() - t2) * 1e3
+    print(f"  kNN init (mean_sq_dist_3nn): {knn_ms:.3f} ms for {pts.shape[0]} "
+          f"points (median mean sq 3-NN distance {d2.median().item():.3e} m^2)")
+    del pts, d2
 
-        parser = ArgumentParser()
-        for c in configs:
-            config.add_config_args(parser, c)
-        argv = ["-s", data, "-m", f"{tmp}/model", *STAGE1_FLAGS]
-        args = parser.parse_args(argv)
-        driver.prepare_output_path(args)
-        record = StageRecord()
-        stdout = sys.stdout
-        torch.cuda.reset_peak_memory_stats()
-        cp.reset_launches()
-        try:
-            # the driver's own seeding (timestamped stdout until restored)
-            safe_state(False, seed=0)
-            t3 = time.perf_counter()
-            scene, model = driver.training(
-                *(config.extract_config(args, c) for c in configs), args,
-                logger=record)
-            torch.cuda.synchronize()
-            t_train = time.perf_counter() - t3
-        finally:
-            sys.stdout = stdout
-        launches = dict(cp.launches)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"  peak device memory of the run {peak / 2**30:.3f} GiB "
-              f"(torch.cuda.max_memory_allocated)")
-        summary = check_stage1(record, scene, model, launches, t_train, args,
-                               parser.parse_args(argv))
-        return dict(summary, dataset_s=t_data, knn_ms=knn_ms,
-                    gt_max_pairs_per_tile=cfg.max_pairs_per_tile,
-                    gt_pair_capacity=cfg.pair_capacity, gt_worst=worst,
-                    peak_gib=peak / 2**30)
+    parser = ArgumentParser()
+    for c in configs:
+        config.add_config_args(parser, c)
+    argv = ["-s", data, "-m", f"{tmp}/model", *STAGE1_FLAGS]
+    args = parser.parse_args(argv)
+    driver.prepare_output_path(args)
+    record = StageRecord()
+    stdout = sys.stdout
+    torch.cuda.reset_peak_memory_stats()
+    cp.reset_launches()
+    try:
+        # the driver's own seeding (timestamped stdout until restored)
+        safe_state(False, seed=0)
+        t3 = time.perf_counter()
+        scene, model = driver.training(
+            *(config.extract_config(args, c) for c in configs), args,
+            logger=record)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t3
+    finally:
+        sys.stdout = stdout
+    launches = dict(cp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory of the run {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    summary = check_stage1(record, scene, model, launches, t_train, args,
+                           parser.parse_args(argv))
+    return dict(summary, dataset_s=t_data, knn_ms=knn_ms,
+                gt_max_pairs_per_tile=cfg.max_pairs_per_tile,
+                gt_pair_capacity=cfg.pair_capacity, gt_worst=worst,
+                peak_gib=peak / 2**30)
 
 
 def check_stage1(record, scene, model, launches, t_train, args, resume_args):
@@ -946,6 +953,317 @@ def check_stage1(record, scene, model, launches, t_train, args, resume_args):
                 loss_last=losses[-1], image_metrics=image,
                 f1=[float(x) for x in next(v for k, v in metrics.items()
                                            if k.startswith("f1"))])
+
+
+# phase 12: Stage II -> Stage III -> eval on phase 11's capture
+STAGE3_FLAGS = ["--iterations", "500", "--position_lr_max_steps", "500",
+                "--densify_from_iter", "50", "--densification_interval", "100",
+                "--densify_until_iter", "400", "--merge_interval", "100",
+                "--growth_interval", "250", "--growth_max_events", "1",
+                "--save_frequency", "500", "--eval_frequency", "500",
+                "--logger", "none"]
+HAIR_GRAD_NAMES = ("endpoints", "features_dc", "features_rest", "opacity",
+                   "mask", "width")
+
+
+def small_hair_state(n_gaussians=3000):
+    """A few thousand segments on the CPU: a small bench scene's Gaussians
+    converted by to_hair_model, merged into strands of a few segments with
+    wide thresholds; returns (capture() state, bench scene)."""
+    from hairgs_tpu_torch.bench_scene import build_bench_scene
+    from hairgs_tpu_torch.models.gaussian import GaussianModel
+    from hairgs_tpu_torch.topo.merge import stage2_merge_loop
+
+    s = build_bench_scene(n_gaussians=n_gaussians, width=128, height=96, seed=1,
+                          capacity_round=1024, device="cpu")
+    g = GaussianModel(sh_degree=0, capacity_round=1024, device="cpu")
+    g._install({k: v[:n_gaussians].numpy() for k, v in s.params._asdict().items()},
+               n_gaussians)
+    g.training_setup(s.opt_cfg)
+    hair = g.to_hair_model(s.params.xyz[:64].numpy())
+    hair.merge_dist_th, hair.merge_angle_th = 0.03, 90.0
+    stage2_merge_loop(hair, 20)
+    return hair.capture(), s
+
+
+def hair_grads_against_cpu(cfg):
+    """Phase 12, step 1: loss and gradients of a small hair scene on the
+    card (kernels) and on the CPU (plain versions) from the same state: the
+    render's loss and parameter gradients with the smoothness and the
+    magnet terms added, and one make_hair_train_step with each term on.
+    Gates of phase 5: loss 1e-4 relative, each gradient and the viewspace
+    statistic 5e-3 x max |cpu|."""
+    from hairgs_tpu_torch.models.hair import HairModel, hair_render_inputs
+    from hairgs_tpu_torch.topo.strands import magnet_indices, smooth_pair_indices
+    from hairgs_tpu_torch.train import trainer
+
+    state, s = small_hair_state()
+    opt = dataclasses.replace(s.opt_cfg, lambda_magnet=1.0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = HairModel(sh_degree=0, capacity_round=1024, device=dev)
+        m.restore(state)
+        m.training_setup(opt)
+        cam = type(s.cams[0])(*[None if t is None else t.to(dev) for t in s.cams[0]])
+        sp, sv = (torch.tensor(a, device=dev) for a in smooth_pair_indices(m.strands_info))
+        mag = tuple(torch.tensor(a, device=dev) for a in magnet_indices(m))
+        sp, mag = sp.long(), (mag[0].long(), mag[1].long(), mag[2])
+        f = m.dist_to_scale_factor
+        loss, grads, offset_grad, _ = trainer.render_loss_and_grads(
+            lambda p: hair_render_inputs(p, m.graph, cam.cam_center, 0, f),
+            m.params, cam, m.graph.seg_active, opt, cfg, s.width, s.height)
+        smooth, g_s = trainer._endpoint_term(
+            lambda e: trainer.angle_smoothness_loss(e, sp, sv), m.params)
+        magnet, g_m = trainer._endpoint_term(
+            lambda e: trainer.strand_joints_magnet_loss(e, *mag), m.params)
+        losses = [loss.item(), smooth.item(), magnet.item()]
+        for use_magnet in (False, True):
+            step = trainer.make_hair_train_step(
+                opt, cfg, width=s.width, height=s.height, active_sh_degree=0,
+                dist_to_scale_factor=f, use_smooth=not use_magnet,
+                use_magnet=use_magnet, device=dev)
+            metrics = step(m.params, m.graph, m.stats, m.opt_state, cam, 1, sp, sv,
+                           magnet_idx=mag)[3]
+            losses.append(metrics["loss"].item())
+        out[dev] = (losses, [t.cpu() for t in grads] + [g_s.cpu(), g_m.cpu(),
+                                                      offset_grad.cpu()])
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    n_seg = int(state["endpoint_pairs"].shape[0])
+    print(f"  small hair scene: {n_seg} segments; loss, smoothness, magnet, step "
+          f"with smoothness, step with magnet: cuda {lg} cpu {lc}")
+    if lc[1] <= 0 or lc[2] <= 0:
+        fail("the small hair scene has no smoothness or magnet term")
+    for a, b in zip(lg, lc):
+        if not np.isfinite(a) or abs(a - b) > 1e-4 * max(1.0, abs(b)):
+            fail("a hair loss on the card disagrees with the CPU")
+    names = HAIR_GRAD_NAMES + ("smoothness d_endpoints", "magnet d_endpoints",
+                               "viewspace")
+    for name, a, b in zip(names, gg, gc):
+        if b.numel() == 0:
+            continue
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-12)
+        print(f"    grad {name}: rel err {rel:.3e}")
+        if not torch.isfinite(a).all() or rel > BWD_GATE:
+            fail(f"hair gradient {name} on the card disagrees with the CPU")
+
+
+def stage2_merge(tmp, stage1_f1):
+    """Phase 12, step 2: the merge driver on phase 11's model directory.
+    Fails if the loop does not converge, the strand count ever rises, the
+    segment count changes, or the saved hair PLY does not reload with an
+    equal graph. Returns a summary dict."""
+    from hairgs_tpu_torch.drivers import merge as merge_driver
+    from hairgs_tpu_torch.models.hair import HairModel
+
+    args = merge_driver.build_parser().parse_args(
+        ["-s", f"{tmp}/scene", "-m", f"{tmp}/model"])
+    t0 = time.perf_counter()
+    out = merge_driver.main(args)
+    t_merge = time.perf_counter() - t0
+    hair, rows = out["hair"], out["rows"]
+    segs, eps, strands = out["converted"]
+    print(f"  after to_hair_model: {segs} segments, {eps} endpoints, {strands} "
+          f"strands; the driver {t_merge:.1f} s")
+    for r in rows:
+        print(f"  merge iter {r['iteration']}: merged {r['merged']} pairs -> "
+              f"{r['strands']} strands, {r['total']:.3f} s (candidate search "
+              f"{r['candidates']:.3f} s)")
+    metrics, ths = out["metrics"]
+    f1 = [float(x) for x in metrics["f1(b)"]]
+    print(f"  converged after {out['iterations']} iterations; F1(b) at "
+          f"{ths[-1]} {f1[-1]:.4f} after the merge (phase 11: {stage1_f1[-1]:.4f}); "
+          f"F1(b) at every threshold {f1}")
+    if out["iterations"] >= args.iterations or not rows:
+        fail("the Stage-II merge did not converge")
+    counts = [strands] + [r["strands"] for r in rows]
+    if any(b > a for a, b in zip(counts, counts[1:])):
+        fail(f"the strand count rose during the merge: {counts}")
+    if any(r["segments"] != segs for r in rows) or hair.num_segments != segs:
+        fail("the segment count changed during the merge")
+    again = HairModel(sh_degree=hair.sh_degree, capacity_round=hair.capacity_round,
+                      device=hair.device)
+    again.load_ply(out["path"])
+    a, b = again.host_arrays(), hair.host_arrays()
+    if not all(np.array_equal(a[k], b[k]) for k in a) or \
+            len(again.strands_info.list_strands) != len(hair.strands_info.list_strands):
+        fail("the saved hair PLY does not reload with an equal graph")
+    return dict(converted=dict(segments=segs, endpoints=eps, strands=strands),
+                iterations=out["iterations"],
+                rows=[{k: r[k] for k in ("merged", "strands", "total", "candidates")}
+                      for r in rows],
+                f1=f1, seconds=t_merge)
+
+
+class HairRecord(StageRecord):
+    """StageRecord for the hair model: the loss terms, the topology info,
+    the segment and strand counts."""
+
+    def log(self, info, model):
+        self.rows.append(dict(t=time.perf_counter(), it=info.iter, loss=info.loss,
+                              parts=dict(info.loss_dict or {}),
+                              dens=dict(info.densification_info),
+                              topo_ms=info.topology_ms, count=model.num_segments,
+                              strands=len(model.strands_info.list_strands)))
+        if info.image_metrics:
+            self.eval = (info.eval_metrics, info.eval_thresholds, info.image_metrics)
+
+
+def stage3_driver(tmp):
+    """Phase 12, step 3: the Stage-III driver on the merged directory, then
+    a resume and the eval driver. Returns a summary dict."""
+    from argparse import ArgumentParser
+
+    from hairgs_tpu_torch import config
+    from hairgs_tpu_torch.drivers import train as driver
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.system import safe_state
+
+    configs = (config.ModelConfig, config.OptimizationConfig,
+               config.GeneralConfig, config.RuntimeConfig)
+    parser = ArgumentParser()
+    for c in configs:
+        config.add_config_args(parser, c)
+    argv = ["-s", f"{tmp}/scene", "-m", f"{tmp}/model", *STAGE3_FLAGS]
+    args = parser.parse_args(argv)
+    driver.prepare_output_path(args)
+    record = HairRecord()
+    stdout = sys.stdout
+    torch.cuda.reset_peak_memory_stats()
+    cp.reset_launches()
+    try:
+        safe_state(False, seed=0)
+        t0 = time.perf_counter()
+        scene, model = driver.training(
+            *(config.extract_config(args, c) for c in configs), args, logger=record)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+    finally:
+        sys.stdout = stdout
+    launches = dict(cp.launches)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory of the run {peak / 2**30:.3f} GiB")
+    summary = check_stage3(record, scene, model, launches, t_train, args)
+    summary.update(peak_gib=peak / 2**30,
+                   **hair_resume_and_eval(record, scene, model, args,
+                                          parser.parse_args(argv)))
+    return summary
+
+
+def check_stage3(record, scene, model, launches, t_train, args):
+    """Print the Stage-III run's numbers and fail() on a broken run."""
+    from hairgs_tpu_torch.evaluation.metrics import format_metric_table
+
+    rows = record.rows
+    start = rows[0]["it"]
+    n_steps = rows[-1]["it"] - start
+    n_views = len(scene.get_cameras())
+    events = [r for r in rows if r["dens"]]
+    print(f"  {rows[0]['count']} segments and {rows[0]['strands']} strands at the "
+          f"start; {n_steps} steps in {t_train:.1f} s ({n_steps / t_train:.3f} it/s "
+          f"over the whole call of training())")
+    for r in events:
+        times = {k: v for k, v in r["dens"].items() if k.startswith("t_")}
+        counts = {k: v for k, v in r["dens"].items() if not k.startswith("t_")}
+        print(f"  event at iter {r['it']}: {r['topo_ms']:.1f} ms {times}; {counts} "
+              f"-> {r['count']} segments, {r['strands']} strands")
+    bounds = [0] + [r["it"] - start for r in events] + [n_steps]
+    stretches = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        dts = [(rows[i]["t"] - rows[i - 1]["t"]) * 1e3 for i in range(lo + 1, hi)]
+        if dts:
+            stretches.append((lo + 1, hi - 1, float(np.mean(dts)), float(np.median(dts))))
+            print(f"  steps {lo + 1}-{hi - 1}: mean {stretches[-1][2]:.3f} ms, "
+                  f"median {stretches[-1][3]:.3f} ms")
+    synced = [r for r in rows if r["loss"] is not None]
+    lam = args.lambda_dssim
+
+    def photo(r):
+        return (1 - lam) * r["parts"]["l1"] + lam * r["parts"]["dssim"]
+
+    print(f"  photometric loss at the first sync (iter {synced[0]['it']}) "
+          f"{photo(synced[0]):.6f}, at iter {synced[-1]['it']} {photo(synced[-1]):.6f}; "
+          f"smoothness term {synced[0]['parts']['smooth']:.6f} -> "
+          f"{synced[-1]['parts']['smooth']:.6f}; total loss "
+          f"{synced[0]['loss']:.6f} -> {synced[-1]['loss']:.6f}")
+    print(f"  launches over the run: {launches}")
+    metrics, thresholds, image = record.eval
+    print("  final strand metrics (on the host, evaluation/metrics.py):")
+    for line in format_metric_table(metrics, thresholds).splitlines():
+        print("    " + line)
+    print(f"  image metrics over the {n_views} views: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in image.items()))
+
+    if not all(np.isfinite(r["loss"]) for r in synced) or \
+            not all(torch.isfinite(p).all() for p in model.params):
+        fail("non-finite loss or parameters in the Stage-III run")
+    if not photo(synced[-1]) < photo(synced[0]):
+        fail("the photometric loss did not fall in the Stage-III run")
+    kinds = {k: sum(1 for r in events if k in r["dens"])
+             for k in ("clone", "merge", "grow")}
+    if kinds["clone"] < 3 or kinds["merge"] < 4 or kinds["grow"] != 1:
+        fail(f"missing topology events: {kinds} (densify, merge, grow)")
+    window = args.densify_until_iter - 1
+    if launches["composite_fwd"] != n_steps + n_views \
+            or launches["composite_bwd"] != window \
+            or launches["composite_bwd_nostats"] != n_steps - window:
+        fail(f"expected {n_steps + n_views} forward, {window} backward with stats "
+             f"and {n_steps - window} without, got {launches}")
+    return dict(steps=n_steps, seconds=t_train, launches=launches,
+                stretches=stretches, events=len(events), event_kinds=kinds,
+                initial_segments=rows[0]["count"], final_segments=model.num_segments,
+                final_strands=len(model.strands_info.list_strands),
+                photo_first=photo(synced[0]), photo_last=photo(synced[-1]),
+                smooth_last=synced[-1]["parts"]["smooth"], image_metrics=image,
+                f1=[float(x) for x in metrics["f1(b)"]])
+
+
+def hair_resume_and_eval(record, scene, model, args, resume_args):
+    """Phase 12, steps 4-5: a new Scene on the model directory holds the
+    hair parameters and graph bit-equal and renders one view bit-equal;
+    the eval driver on the final PLY (with -m) gives the in-training
+    evaluation's strand metrics."""
+    import random
+
+    from hairgs_tpu_torch.drivers import eval as eval_driver
+    from hairgs_tpu_torch.models.hair import HairModel, hair_render_inputs
+    from hairgs_tpu_torch.render.renderer import RasterConfig, render
+    from hairgs_tpu_torch.scene import Scene
+
+    random.seed(0)
+    again = Scene(resume_args, capacity_round=args.capacity_round)
+    hm = again.gaussians
+    same = isinstance(hm, HairModel) and \
+        all(torch.equal(a, b) for a, b in zip(hm.params, model.params)) and \
+        all(torch.equal(a, b) for a, b in zip(hm.graph, model.graph))
+    cam = again.get_cameras()[0]
+    cfg = RasterConfig(max_tiles_per_gaussian=args.max_tiles_per_gaussian,
+                       max_pairs_per_tile=args.max_pairs_per_tile,
+                       chunk=args.composite_chunk, use_pallas=True,
+                       viewspace_stats=False)
+    with torch.no_grad():
+        imgs = [render(cam, **hair_render_inputs(m.params, m.graph, cam.cam_center,
+                                                 m.active_sh_degree,
+                                                 m.dist_to_scale_factor),
+                       active=m.graph.seg_active, width=cam.width, height=cam.height,
+                       config=cfg)["render"] for m in (model, hm)]
+    equal = torch.equal(*imgs)
+    print(f"  resume: loaded iteration {again.loaded_iter}, {hm.num_segments} "
+          f"segments, parameters and graph bit-equal {same}, view render "
+          f"bit-equal {equal}")
+    if not (same and equal):
+        fail("the resumed hair model differs from the trained one")
+
+    ply = f"{args.model_path}/point_cloud/iteration_{again.loaded_iter}/point_cloud.ply"
+    t0 = time.perf_counter()
+    got = eval_driver.main(["-s", args.source_path, "-p", ply, "-m", args.model_path])
+    t_eval = time.perf_counter() - t0
+    want = record.eval[0]
+    diff = {k: (list(map(float, got[k])), list(map(float, want[k])))
+            for k in ("precision(b)", "recall(b)", "f1(b)")}
+    print(f"  eval driver ({t_eval:.1f} s): (driver, in training) {diff}")
+    if any(a != b for a, b in diff.values()):
+        fail("the eval driver's strand metrics differ from the in-training ones")
+    return dict(resume_equal=True, eval_driver_s=t_eval)
 
 
 def main():
@@ -1195,10 +1513,21 @@ def main():
     probe_entry = check_probe(device)
     print(f"  phases 7-10: {time.perf_counter() - t_phase:.1f} s")
 
+    # phase 12 continues from phase 11's capture and model directory
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_stages_")
+    tmp = tmp_dir.name
     print("phase 11: the Stage-I driver on a USC-scale scene")
     t_phase = time.perf_counter()
-    stage1 = stage1_driver(device)
+    stage1 = stage1_driver(device, tmp)
     print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+    print("phase 12: Stage II, Stage III and evaluation on phase 11's capture")
+    t_phase = time.perf_counter()
+    hair_grads_against_cpu(cfg)
+    stage2 = stage2_merge(tmp, stage1["f1"])
+    stage3 = stage3_driver(tmp)
+    tmp_dir.cleanup()
+    print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -1230,7 +1559,8 @@ def main():
     print(json.dumps({"step_ms": ms_step, "it_per_s": n_timed / dt,
                       "host_median_step_ms": median_ms,
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
-                      "stage1_driver": stage1, "card": smi}))
+                      "stage1_driver": stage1, "stage2_merge": stage2,
+                      "stage3_driver": stage3, "card": smi}))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

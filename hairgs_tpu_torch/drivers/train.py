@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Stage-I training driver (counterpart of the root train.py).
+"""Stage-I / Stage-III training driver (counterpart of the root train.py).
 
     python3 -m hairgs_tpu_torch.drivers.train -s <scene> -m <out> [flags]
 
@@ -10,16 +10,21 @@ every densification_interval (with the world-size prune after the first
 opacity reset), opacity reset every opacity_reset_interval, the
 densification-statistics rows dropped from the compositor backward once the
 densify window closes, metric syncs only at the logging cadence, checkpoint
-every save_frequency and eval at eval_frequency and at the end.
+every save_frequency and eval at eval_frequency and at the end. A model
+directory whose last checkpoint is a hair PLY (Stage II's output) trains
+the strand graph (Stage III): the smoothness (and magnet) terms, the
+merge-threshold schedule, and hair merging every merge_interval and
+growing every growth_interval (at most growth_max_events times), all
+synchronous between steps.
 
 The model and cameras live on `--data_device` (default "cuda"); with
 `--use_pallas auto` a CUDA device takes the paged path, whose compositor
 passes are the hand-written kernels, and the CPU takes the XLA path. The
 three adaptive controllers resize the pair table between steps; in torch a
 new size costs no recompilation. Not ported yet, each named where it
-raises: the hair model (Stage III, ROADMAP Queue 1 item 6), device-side
-in-training metrics (item 7), the viewer and visualisations (item 8) and
-Gaussian-axis sharding (item 9).
+raises: topology events on a worker thread (`--async_topology`, ROADMAP
+Queue 1 item 6, left over), device-side in-training metrics (item 7), the
+viewer and visualisations (item 8) and Gaussian-axis sharding (item 9).
 """
 
 import os
@@ -164,13 +169,28 @@ def training(mp, op, gp, rt, args, logger=None):
     logging_utils.Logger) replaces the one `--logger` selects."""
     from hairgs_tpu_torch import resolve_device
     from hairgs_tpu_torch.core.camera import stack_cameras
-    from hairgs_tpu_torch.evaluation.eval_data import compute_eval_data_from_gaussian
+    from hairgs_tpu_torch.core.schedules import expon_lr
+    from hairgs_tpu_torch.evaluation.eval_data import (
+        compute_eval_data_from_gaussian,
+        compute_eval_data_from_hair,
+    )
     from hairgs_tpu_torch.evaluation.image_metrics import evaluate_image_metrics
     from hairgs_tpu_torch.evaluation.metrics import compute_metrics
     from hairgs_tpu_torch.logging_utils import Logger, TrainingInfo, get_logger
+    from hairgs_tpu_torch.models.hair import HairModel
     from hairgs_tpu_torch.render.renderer import RasterConfig
     from hairgs_tpu_torch.scene import Scene
-    from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+    from hairgs_tpu_torch.topo.graph_ops import (
+        hair_densification,
+        hair_growing,
+        hair_merging,
+        hair_reset_opacity,
+    )
+    from hairgs_tpu_torch.topo.strands import magnet_indices, smooth_pair_indices
+    from hairgs_tpu_torch.train.trainer import (
+        make_gaussian_train_step,
+        make_hair_train_step,
+    )
 
     if rt.gauss_shard > 1:
         raise NotImplementedError(
@@ -184,6 +204,12 @@ def training(mp, op, gp, rt, args, logger=None):
     scene = Scene(args, shuffle=True, capacity_round=rt.capacity_round)
     model = scene.gaussians
     model.training_setup(op)
+    is_hair = isinstance(model, HairModel)
+    if is_hair and rt.async_topology:
+        raise NotImplementedError(
+            "--async_topology needs the port of topo/async_events.py "
+            "(ROADMAP Queue 1 item 6, left over); topology events run "
+            "synchronously without it")
     logger = get_logger(args) if logger is None else logger
     info = TrainingInfo(iter=scene.loaded_iter)
 
@@ -239,13 +265,14 @@ def training(mp, op, gp, rt, args, logger=None):
     if gp.ip or gp.vis2d or gp.vis3d:
         print("[gui] the network viewer and the 2D/3D visualisations are not "
               "ported yet (ROADMAP Queue 1 item 8); off")
-    if rt.async_topology and not gp.quiet:
+    if rt.async_topology and not is_hair and not gp.quiet:
         print("[topo] --async_topology applies to hair models only; ignored")
 
     def run_eval():
         if scene.gt is None:
             return None, None
-        pred = compute_eval_data_from_gaussian(model)
+        pred = (compute_eval_data_from_hair(model) if is_hair
+                else compute_eval_data_from_gaussian(model))
         info.pred = pred
         return compute_metrics(pred=pred, gt=scene.gt, bidirectional=op.bidirectional_eval)
 
@@ -266,12 +293,33 @@ def training(mp, op, gp, rt, args, logger=None):
         print(f"[parallel] view_batch={view_batch} on one device ({device})")
 
     def build_step():
-        return make_gaussian_train_step(
-            op, raster_cfg, width=width, height=height,
-            active_sh_degree=model.active_sh_degree,
-            spatial_lr_scale=model.spatial_lr_scale, device=device)
+        common = dict(width=width, height=height,
+                      active_sh_degree=model.active_sh_degree,
+                      spatial_lr_scale=model.spatial_lr_scale, device=device)
+        if is_hair:
+            return make_hair_train_step(
+                op, raster_cfg, dist_to_scale_factor=model.dist_to_scale_factor,
+                use_magnet=op.lambda_magnet > 0, **common)
+        return make_gaussian_train_step(op, raster_cfg, **common)
 
     step_fn = build_step()
+
+    # the strand regularizers' index tables, on the device and rebuilt
+    # after every topology change (their padding changes no loss value)
+    def strand_tables():
+        if not is_hair:
+            return None, None, None
+
+        def dev(*arrays):
+            # int64: torch indexes with it
+            return tuple(torch.tensor(a.astype(np.int64) if a.dtype != np.bool_
+                                      else a, device=device) for a in arrays)
+
+        pairs, valid = dev(*smooth_pair_indices(model.strands_info))
+        magnet = dev(*magnet_indices(model)) if op.lambda_magnet > 0 else None
+        return pairs, valid, magnet
+
+    smooth_pairs, smooth_valid, magnet_idx = strand_tables()
 
     profile_dir = os.path.join(args.model_path, "profile")
     profiler = None
@@ -302,6 +350,13 @@ def training(mp, op, gp, rt, args, logger=None):
     iteration = 0
     prev_iter = 0
     step_count = 0
+    growth_events_done = 0
+
+    def grow_allowed():
+        # growth_max_events caps the growth events (0 keeps the
+        # reference's uncapped cadence)
+        return (op.growth_max_events <= 0
+                or growth_events_done < op.growth_max_events)
 
     def crossed(interval):
         """Did this step cross an interval boundary? For view_batch=1 this is
@@ -325,6 +380,17 @@ def training(mp, op, gp, rt, args, logger=None):
         info.iter = scene.loaded_iter + iteration
         info.densification_info = {}
         info.topology_ms = None
+
+        # thresholds scheduled like LRs (hair_gaussian_model.py:285-293)
+        if is_hair:
+            model.merge_dist_th = float(expon_lr(
+                iteration, op.merge_dist_th_init, op.merge_dist_th_final,
+                lr_delay_mult=op.position_lr_delay_mult,
+                max_steps=op.position_lr_max_steps))
+            model.merge_angle_th = float(expon_lr(
+                iteration, op.merge_angle_th_init, op.merge_angle_th_final,
+                lr_delay_mult=op.position_lr_delay_mult,
+                max_steps=op.position_lr_max_steps))
 
         if crossed(1000) and model.active_sh_degree < model.max_sh_degree:
             model.oneup_sh_degree()
@@ -354,9 +420,15 @@ def training(mp, op, gp, rt, args, logger=None):
         cam_input = stack_cameras(cams_step) if view_batch > 1 else cam
 
         t0 = time.time()
-        model.params, model.stats, model.opt_state, metrics, image = step_fn(
-            model.params, model.stats, model.opt_state, model.active,
-            cam_input, iteration)
+        if is_hair:
+            model.params, model.stats, model.opt_state, metrics, image = step_fn(
+                model.params, model.graph, model.stats, model.opt_state,
+                cam_input, iteration, smooth_pairs, smooth_valid,
+                magnet_idx=magnet_idx)
+        else:
+            model.params, model.stats, model.opt_state, metrics, image = step_fn(
+                model.params, model.stats, model.opt_state, model.active,
+                cam_input, iteration)
         info.elapsed_time = (time.time() - t0) * 1000.0
 
         # a host read waits for the device: only at the logging cadence
@@ -374,7 +446,7 @@ def training(mp, op, gp, rt, args, logger=None):
             info.train_psnr = m["psnr"]
             ema_loss = 0.4 * loss + 0.6 * ema_loss
 
-            n_prims = model.count
+            n_prims = model.num_segments if is_hair else model.count
             overflow_pairs = int(m["overflow_pairs"])
             # overflow counters are summed over the K views of a step;
             # scale the per-view budget test accordingly
@@ -443,22 +515,53 @@ def training(mp, op, gp, rt, args, logger=None):
             info.loss_dict = None
             info.train_psnr = None
 
-        # --- topology cadence (train.py:171-200)
-        if iteration < op.densify_until_iter:
-            if iteration > op.densify_from_iter and crossed(op.densification_interval):
-                size_th = op.prune_max_radii_2d if iteration > op.opacity_reset_interval else None
-                _sync(device)
-                t_topo = time.perf_counter()
+        # --- topology cadence (train.py:171-200, 756-783): densify, reset,
+        # then for a hair model merge and grow, synchronous between steps;
+        # a densify and a merge in the same iteration share one host mirror
+        in_window = iteration < op.densify_until_iter
+        due_densify = (in_window and iteration > op.densify_from_iter
+                       and crossed(op.densification_interval))
+        due_reset = in_window and crossed(op.opacity_reset_interval)
+        due_merge = is_hair and crossed(op.merge_interval)
+        due_grow = is_hair and crossed(op.growth_interval) and grow_allowed()
+        topo_changed = due_densify or due_merge or due_grow
+        arrays_cache = None
+        if topo_changed:
+            # time the event alone: the queued steps finish first
+            _sync(device)
+            t_topo = time.perf_counter()
+        if due_densify:
+            size_th = op.prune_max_radii_2d if iteration > op.opacity_reset_interval else None
+            if is_hair:
+                _, arrays_cache = hair_densification(
+                    model, scene.cameras_extent, size_th, info,
+                    return_arrays=True)
+            else:
                 model.densification(scene.cameras_extent, size_th, info)
-                _sync(device)
-                info.topology_ms = (time.perf_counter() - t_topo) * 1e3
-                if not gp.quiet:
-                    print(f"[densify] iter {iteration}: {info.densification_info}"
-                          f" -> {model.count} Gaussians in {info.topology_ms:.1f} ms")
-            if crossed(op.opacity_reset_interval):
+        if due_reset:
+            if is_hair:
+                hair_reset_opacity(model)
+                arrays_cache = None  # the opacity plane changed on the device
+            else:
                 model.reset_opacity()
-                if not gp.quiet:
-                    print(f"[densify] iter {iteration}: opacity reset")
+            if not gp.quiet:
+                print(f"[densify] iter {iteration}: opacity reset")
+        if due_merge:
+            hair_merging(model, info, arrays=arrays_cache)
+        if due_grow:
+            hair_growing(model, info, growth_length=op.growth_length)
+            growth_events_done += 1
+        if topo_changed:
+            if is_hair:
+                smooth_pairs, smooth_valid, magnet_idx = strand_tables()
+            _sync(device)
+            info.topology_ms = (time.perf_counter() - t_topo) * 1e3
+            if not gp.quiet:
+                size = (f"{model.num_segments} segments, "
+                        f"{len(model.strands_info.list_strands)} strands"
+                        if is_hair else f"{model.count} Gaussians")
+                print(f"[densify] iter {iteration}: {info.densification_info}"
+                      f" -> {size} in {info.topology_ms:.1f} ms")
         # the 2D grid of the visualisations is not ported (ROADMAP Queue 1
         # item 8)
         info.composed_image = None

@@ -1,9 +1,9 @@
 """Adapters converting models / files into HairEvalData for metric
-evaluation (counterpart of hairgs_tpu/evaluation/eval_data.py: the Gaussian
-model and the file loaders; the hair model's converters come with its port,
-ROADMAP Queue 1 item 6).
+evaluation (counterpart of hairgs_tpu/evaluation/eval_data.py, host path;
+the device-side point sets come with device_metrics.py, ROADMAP Queue 1
+item 7).
 
-Parity target: data/eval_data.py — converters from live models (l.121-130),
+Parity target: data/eval_data.py — converters from live models (l.121-171),
 own checkpoint PLYs (l.174-186), and external method outputs (Strand
 Integration l.38-82, Neural Haircut l.85-118).
 """
@@ -29,19 +29,47 @@ def compute_eval_data_from_gaussian(model) -> HairEvalData:
                         points_id_to_strand_id=None, edges=None)
 
 
+def compute_eval_data_from_hair(model, compute_edges: bool = False) -> HairEvalData:
+    """Per-segment start points + directions in strand order
+    (data/eval_data.py:133-171), on the host."""
+    endpoints = model.host_arrays(keys=("endpoints",))["endpoints"]
+    info = model.strands_info
+    if info is None or not info.list_strands:
+        return HairEvalData(points=np.zeros((0, 3)), directions=np.zeros((0, 3)),
+                            points_id_to_strand_id=np.zeros(0, np.int32), edges=None)
+    segments_id = np.concatenate(info.list_strands, axis=0)
+    segments = endpoints[segments_id]
+    directions = segments[:, 1] - segments[:, 0]
+    directions = directions / np.linalg.norm(directions, axis=1, keepdims=True)
+    points_id = segments_id[:, 0]
+    points = endpoints[points_id]
+    p2s = info.id_to_strand_id[points_id]
+    edges = None
+    if compute_edges:
+        mapping = np.zeros(int(segments_id.max()) + 1, dtype=np.int32)
+        mapping[segments_id[:, 0]] = np.arange(segments_id.shape[0])
+        u, c = np.unique(segments_id, return_counts=True)
+        u = u[c > 1]
+        mask = np.isin(segments_id[:, 1], u)
+        edges = mapping[segments_id[mask]]
+    return HairEvalData(points=points, directions=directions,
+                        points_id_to_strand_id=p2s, edges=edges)
+
+
 def load_eval_data_from_gaussians(path: str, sh_degree: int = 0,
                                   device="cuda") -> HairEvalData:
-    """Load a checkpoint PLY and convert (data/eval_data.py:174-186); a hair
-    model's PLY (5 elements) needs the Stage-II/III port."""
+    """Load a checkpoint PLY on `device` and convert; the model class is
+    dispatched on the element count (data/eval_data.py:174-186)."""
     from hairgs_tpu_torch.models.gaussian import GaussianModel
+    from hairgs_tpu_torch.models.hair import HairModel
 
-    if count_ply_elements(path) != 1:
-        raise NotImplementedError(
-            f"{path} holds a hair model; converting it needs the port of "
-            "models/hair.py (ROADMAP Queue 1 item 6)")
-    g = GaussianModel(sh_degree=sh_degree, device=device)
-    g.load_ply(path)
-    return compute_eval_data_from_gaussian(g)
+    if count_ply_elements(path) == 1:
+        g = GaussianModel(sh_degree=sh_degree, device=device)
+        g.load_ply(path)
+        return compute_eval_data_from_gaussian(g)
+    h = HairModel(sh_degree=sh_degree, device=device)
+    h.load_ply(path)
+    return compute_eval_data_from_hair(h, compute_edges=True)
 
 
 def load_eval_data_from_strand_integration_output(path: str) -> HairEvalData:

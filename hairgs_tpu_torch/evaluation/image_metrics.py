@@ -1,6 +1,5 @@
 """Image-quality metrics (PSNR / SSIM) over a camera set (counterpart of
-hairgs_tpu/evaluation/image_metrics.py, the Gaussian model's branch; the
-hair model's comes with its port, ROADMAP Queue 1 item 6).
+hairgs_tpu/evaluation/image_metrics.py).
 
 Renders every camera once through the fused renderer, on the model's
 device and through the path `config` selects, and reports full-frame PSNR,
@@ -31,18 +30,30 @@ def evaluate_image_metrics(model, cameras, config=None) -> Dict[str, float]:
     """
     from hairgs_tpu_torch.losses.photometric import psnr
     from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
+    from hairgs_tpu_torch.models.hair import HairModel, hair_render_inputs
     from hairgs_tpu_torch.ops.ssim import ssim
     from hairgs_tpu_torch.render.renderer import RasterConfig, render
 
     cfg = config if config is not None else RasterConfig()
+    if isinstance(model, HairModel):
+        active = model.graph.seg_active
+
+        def inputs_for(cam):
+            return hair_render_inputs(model.params, model.graph, cam.cam_center,
+                                      model.active_sh_degree,
+                                      model.dist_to_scale_factor)
+    else:
+        active = model.active
+
+        def inputs_for(cam):
+            return gaussian_render_inputs(model.params, cam.cam_center,
+                                          model.active_sh_degree)
     vals = []
     with torch.no_grad():
         for cam in cameras:
             if cam.image is None:
                 continue
-            inputs = gaussian_render_inputs(model.params, cam.cam_center,
-                                            model.active_sh_degree)
-            out = render(cam, **inputs, active=model.active, width=cam.width,
+            out = render(cam, **inputs_for(cam), active=active, width=cam.width,
                          height=cam.height, config=cfg)
             img = torch.clamp(out["render"][..., :3], 0.0, 1.0)
             result = {"psnr": psnr(img, cam.image), "ssim": ssim(img, cam.image)}

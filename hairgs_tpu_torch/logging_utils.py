@@ -56,9 +56,20 @@ class TensorBoardLogger(Logger):
         for k, v in (info.loss_dict or {}).items():
             w.add_scalar(f"loss/{k}", float(v), it)
         if gaussians is not None:
-            # the Gaussian model only: the hair model's scalars come with
-            # its port (ROADMAP Queue 1 item 6)
-            w.add_scalar("general/num_gaussians", gaussians.count, it)
+            from hairgs_tpu_torch.models.hair import HairModel
+
+            if isinstance(gaussians, HairModel):
+                w.add_scalar("general/num_segments", gaussians.num_segments, it)
+                w.add_scalar("general/num_endpoints", gaussians.num_endpoints, it)
+                if gaussians.strands_info is not None:
+                    strands = gaussians.strands_info.list_strands
+                    w.add_scalar("general/num_strands", len(strands), it)
+                    if strands:
+                        lengths = [s.shape[0] for s in strands]
+                        w.add_scalar("general/avg_strand_segments",
+                                     float(np.mean(lengths)), it)
+            else:
+                w.add_scalar("general/num_gaussians", gaussians.count, it)
         for k, v in (info.densification_info or {}).items():
             w.add_scalar(f"densification/{k}", v, it)
         if info.eval_metrics is not None and info.eval_thresholds is not None:

@@ -440,11 +440,53 @@ class GaussianModel:
     # -- conversion ------------------------------------------------------
 
     def to_hair_model(self, ref_strand_root: np.ndarray):
-        """Conversion to the Stage-II/III HairModel (scene/gaussian_model.py:
-        797-859)."""
-        raise NotImplementedError(
-            "to_hair_model needs the port of models/hair.py and topo/ "
-            "(ROADMAP Queue 1 item 6, Stage II/III)")
+        """Convert to a HairModel on the same device: each Gaussian becomes a
+        disconnected line segment (scene/gaussian_model.py:797-859). Width =
+        mean of the two minor scales (log space); endpoint_pairs =
+        [(i, i+N)]."""
+        from hairgs_tpu_torch.models.hair import HairModel
+        from hairgs_tpu_torch.topo.strands import (
+            compute_strands_info,
+            update_strand_root,
+        )
+
+        arrays = self.host_arrays()
+        n = arrays["xyz"].shape[0]
+        endpoints2 = self.get_segment_endpoints_np(arrays)  # (N,2,3)
+        endpoints = np.concatenate([endpoints2[:, 0], endpoints2[:, 1]], axis=0)
+        scale = self.np_scaling(arrays)
+        axis_idx = np.argmax(scale, axis=1)
+        other = np.ones_like(scale)
+        other[np.arange(n), axis_idx] = 0
+        width = np.mean(scale * other, axis=1, keepdims=True)
+        width = np.log(np.maximum(width, 1e-12)).astype(np.float32)
+        pairs = np.stack([np.arange(n), np.arange(n) + n], axis=1)
+
+        hair = HairModel(
+            sh_degree=self.max_sh_degree,
+            spatial_lr_scale=self.spatial_lr_scale,
+            capacity_round=self.capacity_round,
+            device=self.device,
+        )
+        hair.set_dist_to_scale_factor(float(self.dist_to_scale_factor))
+        hair.active_sh_degree = self.active_sh_degree
+        hair.install(
+            endpoints,
+            pairs,
+            dict(
+                features_dc=arrays["features_dc"],
+                features_rest=arrays["features_rest"],
+                opacity=arrays["opacity"],
+                mask=arrays["mask"],
+                width=width,
+            ),
+        )
+        hair.ref_strand_root = ref_strand_root
+        update_strand_root(hair)
+        compute_strands_info(hair)
+        if self.training_args is not None:
+            hair.training_setup(self.training_args)
+        return hair
 
     def get_segment_endpoints_np(self, arrays=None) -> np.ndarray:
         """(N,2,3) endpoints mu +- R (argmax-scale axis * sigma / factor);

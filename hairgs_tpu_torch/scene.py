@@ -2,8 +2,8 @@
 (counterpart of hairgs_tpu/scene.py).
 
 Parity target: scene/__init__.py:30-134 — COLMAP scene info, camera lists,
-model-type dispatch by checkpoint PLY element count (1 => GaussianModel; 5,
-a hair model, needs the Stage-II/III port), iteration resume, GT +
+model-type dispatch by checkpoint PLY element count (1 => GaussianModel,
+5 => HairModel), iteration resume, GT +
 head-reconstruction npz loading, checkpoint cadence paths
 (model_path/point_cloud/iteration_N/point_cloud.ply). Cameras and the model
 live on `args.data_device`.
@@ -26,6 +26,7 @@ from hairgs_tpu_torch.io.npz import (
 )
 from hairgs_tpu_torch.io.ply import count_ply_elements
 from hairgs_tpu_torch.models.gaussian import GaussianModel
+from hairgs_tpu_torch.models.hair import HairModel
 
 
 def search_for_max_iteration(folder: str) -> int:
@@ -78,13 +79,11 @@ class Scene:
                 for c in cam_infos
             ]
 
-        self.gaussians = GaussianModel(
-            sh_degree=args.sh_degree,
-            spatial_lr_scale=self.cameras_extent,
-            capacity_round=capacity_round,
-            device=self.device,
-        )
+        common = dict(sh_degree=args.sh_degree,
+                      spatial_lr_scale=self.cameras_extent,
+                      capacity_round=capacity_round, device=self.device)
         if self.loaded_iter is None:
+            self.gaussians = GaussianModel(**common)
             self.gaussians.create_from_pcd(scene_info.points, scene_info.colors)
             print(f"Created {type(self.gaussians).__name__} from PCD "
                   f"({self.gaussians.count} points)")
@@ -94,10 +93,8 @@ class Scene:
                 self.model_path, "point_cloud", f"iteration_{self.loaded_iter}",
                 "point_cloud.ply",
             )
-            if count_ply_elements(path) != 1:
-                raise NotImplementedError(
-                    f"{path} holds a hair model (Stage II/III); loading it "
-                    "needs the port of models/hair.py (ROADMAP Queue 1 item 6)")
+            model_cls = GaussianModel if count_ply_elements(path) == 1 else HairModel
+            self.gaussians = model_cls(**common)
             print(f"Loaded {type(self.gaussians).__name__} from PLY at iteration "
                   f"{self.loaded_iter}")
             self.gaussians.load_ply(path)
@@ -111,6 +108,14 @@ class Scene:
         if os.path.exists(head_path):
             self.head_reconstruction = load_head_reconstruction_data_npz(head_path)
             self.gaussians.ref_strand_root = self.head_reconstruction.scalp_verts
+            if isinstance(self.gaussians, HairModel):
+                from hairgs_tpu_torch.topo.strands import (
+                    compute_strands_info,
+                    update_strand_root,
+                )
+
+                update_strand_root(self.gaussians)
+                compute_strands_info(self.gaussians)
             print(f"Head reconstruction loaded from {head_path}")
 
     def save(self, iteration: int = 0):

@@ -1,6 +1,6 @@
-"""Stage-I training step (counterpart of hairgs_tpu/train/trainer.py:27-44,
-66-254): render -> loss -> backward -> densification statistics -> Adam,
-for one camera or a batch of views per step.
+"""Stage-I and Stage-III training steps (counterpart of
+hairgs_tpu/train/trainer.py): render -> loss -> backward -> densification
+statistics -> Adam, for one camera or a batch of views per step.
 
 One fused render per view. On the paged path one backward pass: the
 photometric losses read `render_photo` and the mask / orientation losses
@@ -21,6 +21,10 @@ from hairgs_tpu_torch.losses.photometric import (
     orientation_loss_from_channels,
     psnr,
 )
+from hairgs_tpu_torch.losses.strand import (
+    angle_smoothness_loss,
+    strand_joints_magnet_loss,
+)
 from hairgs_tpu_torch.models.gaussian import (
     MASK,
     ORIENT,
@@ -28,6 +32,7 @@ from hairgs_tpu_torch.models.gaussian import (
     GaussianStats,
     gaussian_render_inputs,
 )
+from hairgs_tpu_torch.models.hair import HairParams, hair_render_inputs
 from hairgs_tpu_torch.ops.ssim import ssim
 from hairgs_tpu_torch.optim import adam_step
 from hairgs_tpu_torch.render.renderer import RasterConfig, render
@@ -50,6 +55,26 @@ def gaussian_lr_tree(opt_cfg, step, spatial_lr_scale):
         rotation=opt_cfg.rotation_lr,
         opacity=opt_cfg.opacity_lr,
         mask=opt_cfg.mask_lr,
+    )
+
+
+def hair_lr_tree(opt_cfg, step, spatial_lr_scale):
+    """Per-group learning rates of the hair model
+    (hair_gaussian_model.py:221-252)."""
+    pos_lr = expon_lr(
+        step,
+        opt_cfg.position_lr_init * spatial_lr_scale,
+        opt_cfg.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=opt_cfg.position_lr_delay_mult,
+        max_steps=opt_cfg.position_lr_max_steps,
+    )
+    return HairParams(
+        endpoints=pos_lr,
+        features_dc=opt_cfg.feature_lr,
+        features_rest=opt_cfg.feature_lr / 20.0,
+        opacity=opt_cfg.opacity_lr,
+        mask=opt_cfg.mask_lr,
+        width=opt_cfg.scaling_lr,
     )
 
 
@@ -196,6 +221,81 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
         with torch.no_grad():
             params, opt_state = adam_step(params, grads, opt_state, lr_tree)
         loss_dict = dict(aux["loss_dict"])
+        train_psnr = loss_dict.pop("psnr")
+        metrics = dict(loss=loss, psnr=train_psnr,
+                       **{f"loss/{k}": v for k, v in loss_dict.items()},
+                       overflow_pairs=aux["overflow_pairs"],
+                       overflow_tiles=aux["overflow_tiles"],
+                       overflow_capacity=aux["overflow_capacity"],
+                       pairs_demand=aux["pairs_demand"])
+        return params, stats, opt_state, metrics, aux["image"]
+
+    return step_fn
+
+
+def _endpoint_term(loss_fn, params):
+    """Value and endpoint gradient of a regularizer on params.endpoints
+    alone (no render path); the other leaves get no gradient from it."""
+    endpoints = params.endpoints.detach().requires_grad_(True)
+    value = loss_fn(endpoints)
+    (grad,) = torch.autograd.grad(value, endpoints)
+    return value.detach(), grad
+
+
+def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
+                         height: int, active_sh_degree: int,
+                         spatial_lr_scale: float = 1.0,
+                         dist_to_scale_factor: float, use_smooth: bool = True,
+                         use_magnet: bool = False, device="cuda"):
+    """Build the Stage-III train step.
+
+    step_fn(params, graph, stats, opt_state, camera, step, smooth_pairs,
+    smooth_valid, magnet_idx=None) -> (params, stats, opt_state, metrics,
+    image), the JAX step's signature. Beside Stage I's render and losses it
+    takes the (non-differentiable) segment graph, and the consecutive-
+    segment index table of the smoothness term (constant between topology
+    changes, rebuilt on the host after each). With use_magnet, magnet_idx =
+    (strand_endpoint_ids, complementary_ids, valid) from
+    topo.strands.magnet_indices. Index tables are int64 tensors on
+    `device`; `step` is a Python int or a 0-d tensor, as in Stage I.
+    """
+    resolve_device(device)
+
+    def step_fn(params, graph, stats, opt_state, camera, step, smooth_pairs,
+                smooth_valid, magnet_idx=None):
+        def one_view(cam):
+            return render_loss_and_grads(
+                lambda p: hair_render_inputs(p, graph, cam.cam_center,
+                                             active_sh_degree, dist_to_scale_factor),
+                params, cam, graph.seg_active, opt_cfg, raster_cfg, width, height)
+
+        loss, grads, offset_grad, aux = _per_view(one_view, camera)
+        loss_dict = dict(aux["loss_dict"])
+
+        # the strand regularizers act on the endpoints directly
+        if use_smooth and opt_cfg.lambda_smooth > 0:
+            smooth, g = _endpoint_term(
+                lambda e: opt_cfg.lambda_smooth * angle_smoothness_loss(
+                    e, smooth_pairs, smooth_valid), params)
+            loss = loss + smooth
+            grads = grads._replace(endpoints=grads.endpoints + g)
+            loss_dict["smooth"] = smooth / opt_cfg.lambda_smooth
+
+        if use_magnet and opt_cfg.lambda_magnet > 0 and magnet_idx is not None:
+            m_ids, m_comp, m_valid = magnet_idx
+            magnet, g = _endpoint_term(
+                lambda e: opt_cfg.lambda_magnet * strand_joints_magnet_loss(
+                    e, m_ids, m_comp, m_valid), params)
+            loss = loss + magnet
+            grads = grads._replace(endpoints=grads.endpoints + g)
+            loss_dict["magnet"] = magnet / opt_cfg.lambda_magnet
+
+        stats = _update_stats(stats, aux["radii"], offset_grad, graph.seg_active)
+        lr_tree = hair_lr_tree(opt_cfg, step, spatial_lr_scale)
+        if not torch.is_tensor(step):
+            lr_tree = lr_tree._replace(endpoints=lr_tree.endpoints.item())
+        with torch.no_grad():
+            params, opt_state = adam_step(params, grads, opt_state, lr_tree)
         train_psnr = loss_dict.pop("psnr")
         metrics = dict(loss=loss, psnr=train_psnr,
                        **{f"loss/{k}": v for k, v in loss_dict.items()},

@@ -27,6 +27,16 @@ FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity", "mask")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and the
+    idle OpenMP threads of a torch pool spin on cores the others need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
     """The fixture scene of tests/test_pipeline.py, written by JAX."""
@@ -270,16 +280,29 @@ def test_paged_run_densifies_and_resumes(scene_dir, tmp_path, monkeypatch):
 
 
 def test_unported_branches_raise(scene_dir, tmp_path, monkeypatch):
-    from hairgs_tpu_torch.io.ply import write_ply
+    """The branches still to port raise naming their ROADMAP item; a
+    5-element PLY (Stage II's output), which raised before the hair model
+    was ported, now loads as a HairModel."""
+    from hairgs_tpu_torch.models.hair import HairModel
     from hairgs_tpu_torch.scene import Scene
 
     for flags, item in ((("--gauss_shard", "2"), "item 9"),
                         (("--device_eval", "true"), "item 7")):
         with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
             _run("torch", _argv(scene_dir, str(tmp_path / item), 2, flags), monkeypatch)
-    hair_dir = tmp_path / "hair" / "point_cloud" / "iteration_5"
-    os.makedirs(hair_dir)
-    one = np.zeros(1, dtype=[("x", "f4")])
-    write_ply(str(hair_dir / "point_cloud.ply"), [(f"e{i}", one) for i in range(5)])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        Scene(_parser_args(scene_dir, str(tmp_path / "hair")))
+    hair = HairModel(sh_degree=0, capacity_round=64, device="cpu")
+    ns = 2
+    hair.install(np.array([[0, 0, 0.1], [0, 0.01, 0.1], [0, 0.02, 0.1]], np.float32),
+                 np.array([[0, 1], [1, 2]]),
+                 dict(features_dc=np.zeros((ns, 1, 3), np.float32),
+                      features_rest=np.zeros((ns, 0, 3), np.float32),
+                      opacity=np.zeros((ns, 1), np.float32),
+                      mask=np.zeros((ns, 1), np.float32),
+                      width=np.full((ns, 1), -8.0, np.float32)))
+    hair.ref_strand_root = np.zeros((1, 3), np.float32)
+    hair.save_ply(str(tmp_path / "hair" / "point_cloud" / "iteration_5" /
+                      "point_cloud.ply"))
+    scene = Scene(_parser_args(scene_dir, str(tmp_path / "hair")))
+    assert isinstance(scene.gaussians, HairModel) and scene.loaded_iter == 5
+    assert scene.gaussians.num_segments == 2
+    assert len(scene.gaussians.strands_info.list_strands) == 1

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of hairgs_tpu_torch (the
-drivers too) and the module scope of chip_smoke.py, in a fresh
-interpreter, loads nothing of JAX or of the JAX package, and leaves TF32
+drivers, the hair model, the topology and the native library's wrapper
+too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
+nothing of JAX or of the JAX package, and leaves TF32
 matmuls switched off."""
 
 import json
@@ -35,8 +36,10 @@ def test_port_imports_nothing_of_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "hairgs_tpu_torch.drivers.train" in report["modules"]
-    assert "hairgs_tpu_torch.scene" in report["modules"]
-    assert len(report["modules"]) >= 40
+    for name in ("drivers.train", "drivers.merge", "drivers.eval", "scene",
+                 "models.hair", "topo.strands", "topo.graph_ops", "topo.merge",
+                 "native", "core.hostsync", "losses.strand"):
+        assert f"hairgs_tpu_torch.{name}" in report["modules"], name
+    assert len(report["modules"]) >= 51
     assert report["foreign"] == []
     assert report["tf32"] is False

@@ -264,8 +264,11 @@ def test_capture_restore_round_trip_and_checkpoint(tmp_path):
     assert other.count == tm.count and other.active_sh_degree == 1
     for k, v in other.capture().items():
         np.testing.assert_array_equal(v, again[k], err_msg=k)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tm.to_hair_model(np.zeros((4, 3), np.float32))
+    # the Stage-II conversion, a stub that raised before the hair model was
+    # ported (tests/test_torch_port_topo.py holds it to JAX)
+    hair = tm.to_hair_model(np.zeros((4, 3), np.float32))
+    assert (hair.num_segments, hair.num_endpoints) == (tm.count, 2 * tm.count)
+    assert hair.device == tm.device
 
 
 def test_model_is_a_dataclass_with_jax_fields():
