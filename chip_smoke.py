@@ -11,9 +11,11 @@ kernels, holds the kernel path against the XLA path (the port of
 scripts/tpu_parity_check.py), runs the precision probe, drives the
 Stage-I driver end to end on a USC-scale capture and resumes from its
 checkpoint, then runs Stage II (the merge driver), Stage III (the train
-driver on the strand graph) and the eval driver on that capture, and
-prints the kernels' times beside their bounds. Exits non-zero on any
-failure, and when no CUDA device is present.
+driver on the strand graph) and the eval driver on that capture, then the
+rest of the training and data paths on those models (device metrics,
+async topology events, the render driver, the Gabor bank, the USC parse
+driver, the 2D grid), and prints the kernels' times beside their bounds.
+Exits non-zero on any failure, and when no CUDA device is present.
 
 Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
 versions (the forward's latch plane included), on the latch fixture, on
@@ -33,7 +35,16 @@ the CPU (smoothness and magnet terms), the merge driver on phase 11's
 model (`drivers/merge.py::main`), 500 Stage-III iterations of
 `drivers/train.py::training()` on the merged strands (3 densify events, 5
 merges, 1 growth, the densify window closing at 400), a resume, and the
-eval driver (`drivers/eval.py::main`) on the final PLY.
+eval driver (`drivers/eval.py::main`) on the final PLY; both drivers' first
+evaluation on the device; 13 `compute_metrics_device` on phases 11-12's
+final models against the host oracle, 500 Stage-III iterations with
+`--async_topology` from the merged model beside the synchronous run, the
+render driver (`drivers/render.py`, all five types on the hair model,
+type 0 on the Gaussian one; one view of the C = 7 and of the C = 3 forward
+against the plain version), `generate_dataset(orientation_source="gabor")`
+at 16 x 1000^2 (a crop on the card against the CPU), the USC parse driver
+on a sample written by scripts/synthesize_usc_sample.py, and the 2D grid
+(`visualization.py`).
 
     python3 chip_smoke.py
 
@@ -44,6 +55,7 @@ The last line of standard output is
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -411,7 +423,8 @@ def fwd_bound_ms(counts, chunk, C, gates, feat_bytes=4):
     bytes_ = (4 * (pairs * 6 + 2 * nt + nt * PIX * (C + 1) + chunks * PIX)
               + feat_bytes * pairs * C)
     n_all, n_pass = gates
-    return bound_ms(bytes_, n_all * GATE_OPS + n_pass * FWD_PASS_OPS)
+    # FWD_PASS_OPS counts 7 channel sums: one per channel
+    return bound_ms(bytes_, n_all * GATE_OPS + n_pass * (FWD_PASS_OPS - 7 + C))
 
 
 def bwd_bound_ms(cnt, chunk, C, gates, feat_bytes=4):
@@ -732,16 +745,23 @@ STAGE1_FLAGS = ["--iterations", "1000", "--position_lr_max_steps", "1000",
 class StageRecord:
     """A logger for the driver (logging_utils.Logger's interface) that keeps,
     per logged iteration, the host clock, the loss, the densification event
-    and the count, and the last evaluation."""
+    and the count, the last evaluation, and whether the first evaluation
+    ran on the device (evaluation/device_metrics.py)."""
 
     def __init__(self):
         self.rows = []
         self.eval = None
+        self.first_eval_on_device = None
 
     def log(self, info, model):
         self.rows.append(dict(t=time.perf_counter(), it=info.iter, loss=info.loss,
                               dens=dict(info.densification_info),
                               topo_ms=info.topology_ms, count=model.count))
+        self._evals(info)
+
+    def _evals(self, info):
+        if self.first_eval_on_device is None and info.eval_metrics is not None:
+            self.first_eval_on_device = info.eval_on_device
         if info.image_metrics:
             self.eval = (info.eval_metrics, info.eval_thresholds, info.image_metrics)
 
@@ -785,7 +805,9 @@ def stage1_driver(device, tmp):
     generate_dataset on the card (GT views on the kernel path) in
     `tmp`/scene, run the Stage-I driver's training() on it with
     STAGE1_FLAGS into `tmp`/model, check the run and resume from its
-    checkpoint. Returns a summary dict."""
+    checkpoint. Returns a summary dict, and what phase 13 reuses: the
+    trained model, the GT strands of the scene, the strand geometry and
+    the GT renders' raster configuration."""
     from argparse import ArgumentParser
 
     from hairgs_tpu_torch import config
@@ -858,10 +880,11 @@ def stage1_driver(device, tmp):
           f"(torch.cuda.max_memory_allocated)")
     summary = check_stage1(record, scene, model, launches, t_train, args,
                            parser.parse_args(argv))
-    return dict(summary, dataset_s=t_data, knn_ms=knn_ms,
-                gt_max_pairs_per_tile=cfg.max_pairs_per_tile,
-                gt_pair_capacity=cfg.pair_capacity, gt_worst=worst,
-                peak_gib=peak / 2**30)
+    summary = dict(summary, dataset_s=t_data, knn_ms=knn_ms,
+                   gt_max_pairs_per_tile=cfg.max_pairs_per_tile,
+                   gt_pair_capacity=cfg.pair_capacity, gt_worst=worst,
+                   peak_gib=peak / 2**30)
+    return summary, dict(model=model, gt=scene.gt, hair=hair, gt_cfg=cfg)
 
 
 def check_stage1(record, scene, model, launches, t_train, args, resume_args):
@@ -909,6 +932,9 @@ def check_stage1(record, scene, model, launches, t_train, args, resume_args):
         print("    " + line)
     print(f"  image metrics over the {n_views} views: "
           + ", ".join(f"{k} {v:.4f}" for k, v in image.items()))
+    print(f"  first evaluation on the device: {record.first_eval_on_device}")
+    if record.first_eval_on_device is not True:
+        fail("the Stage-I driver's first evaluation did not take the device path")
 
     if not all(np.isfinite(loss) for _, loss in losses) or \
             not all(torch.isfinite(p).all() for p in model.params):
@@ -1104,13 +1130,13 @@ class HairRecord(StageRecord):
                               dens=dict(info.densification_info),
                               topo_ms=info.topology_ms, count=model.num_segments,
                               strands=len(model.strands_info.list_strands)))
-        if info.image_metrics:
-            self.eval = (info.eval_metrics, info.eval_thresholds, info.image_metrics)
+        self._evals(info)
 
 
-def stage3_driver(tmp):
-    """Phase 12, step 3: the Stage-III driver on the merged directory, then
-    a resume and the eval driver. Returns a summary dict."""
+def run_stage3(tmp, model_dir, extra=()):
+    """The Stage-III driver's training() on `model_dir` with STAGE3_FLAGS
+    and `extra`; returns (record, scene, model, launches, seconds, args,
+    the argv's parser)."""
     from argparse import ArgumentParser
 
     from hairgs_tpu_torch import config
@@ -1123,7 +1149,7 @@ def stage3_driver(tmp):
     parser = ArgumentParser()
     for c in configs:
         config.add_config_args(parser, c)
-    argv = ["-s", f"{tmp}/scene", "-m", f"{tmp}/model", *STAGE3_FLAGS]
+    argv = ["-s", f"{tmp}/scene", "-m", model_dir, *STAGE3_FLAGS, *extra]
     args = parser.parse_args(argv)
     driver.prepare_output_path(args)
     record = HairRecord()
@@ -1139,14 +1165,22 @@ def stage3_driver(tmp):
         t_train = time.perf_counter() - t0
     finally:
         sys.stdout = stdout
-    launches = dict(cp.launches)
+    return record, scene, model, dict(cp.launches), t_train, args, \
+        parser.parse_args(argv)
+
+
+def stage3_driver(tmp):
+    """Phase 12, step 3: the Stage-III driver on the merged directory, then
+    a resume and the eval driver. Returns a summary dict, and the record,
+    scene and model for phase 13."""
+    record, scene, model, launches, t_train, args, resume_args = run_stage3(
+        tmp, f"{tmp}/model")
     peak = torch.cuda.max_memory_allocated()
     print(f"  peak device memory of the run {peak / 2**30:.3f} GiB")
     summary = check_stage3(record, scene, model, launches, t_train, args)
     summary.update(peak_gib=peak / 2**30,
-                   **hair_resume_and_eval(record, scene, model, args,
-                                          parser.parse_args(argv)))
-    return summary
+                   **hair_resume_and_eval(record, scene, model, args, resume_args))
+    return summary, dict(record=record, scene=scene, model=model)
 
 
 def check_stage3(record, scene, model, launches, t_train, args):
@@ -1192,6 +1226,9 @@ def check_stage3(record, scene, model, launches, t_train, args):
         print("    " + line)
     print(f"  image metrics over the {n_views} views: "
           + ", ".join(f"{k} {v:.4f}" for k, v in image.items()))
+    print(f"  first evaluation on the device: {record.first_eval_on_device}")
+    if record.first_eval_on_device is not True:
+        fail("the Stage-III driver's first evaluation did not take the device path")
 
     if not all(np.isfinite(r["loss"]) for r in synced) or \
             not all(torch.isfinite(p).all() for p in model.params):
@@ -1264,6 +1301,405 @@ def hair_resume_and_eval(record, scene, model, args, resume_args):
     if any(a != b for a, b in diff.values()):
         fail("the eval driver's strand metrics differ from the in-training ones")
     return dict(resume_equal=True, eval_driver_s=t_eval)
+
+
+# phase 13: the rest of the training and data paths on phase 11-12's capture
+DEVICE_METRIC_GATE = 1e-3  # |device - host| on every precision, recall, F1
+GABOR_CROP = 128
+GABOR_INDEX_SHARE = 0.999  # card against CPU, same crop
+GABOR_CONF_ERR = 1e-4
+RENDER_VIEWS = 16  # USC_CAMERAS
+USC_PARSE_FLAGS = ["--orientation", "gabor", "--cameras", "4", "--width", "512",
+                   "--height", "512"]
+
+
+def device_metrics_check(models, gt, smi):
+    """Phase 13, step 1: compute_metrics_device on the final models against
+    the capture's GT points, held to the host oracle (compute_metrics) on
+    the same model; both timed (host clock, the device synchronised)."""
+    from hairgs_tpu_torch.evaluation.device_metrics import compute_metrics_device
+    from hairgs_tpu_torch.evaluation.eval_data import (
+        compute_eval_data_from_gaussian,
+        compute_eval_data_from_hair,
+        eval_points_device_from_gaussian,
+        eval_points_device_from_hair,
+    )
+    from hairgs_tpu_torch.evaluation.metrics import compute_metrics
+
+    dev = torch.device("cuda")
+    gt_pts = torch.tensor(np.asarray(gt.points, np.float32), device=dev)
+    gt_dirs = torch.tensor(np.asarray(gt.directions, np.float32), device=dev)
+    out = {}
+    for name, model in models:
+        is_hair = name == "hair"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts, dirs, valid = (eval_points_device_from_hair(model) if is_hair
+                            else eval_points_device_from_gaussian(model))
+        got, ths = compute_metrics_device(pts, dirs, gt_pts, gt_dirs,
+                                          pred_valid=valid, bidirectional=True)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        pred = (compute_eval_data_from_hair(model) if is_hair
+                else compute_eval_data_from_gaussian(model))
+        want, _ = compute_metrics(pred=pred, gt=gt, bidirectional=True)
+        t_host = time.perf_counter() - t1
+        delta = max(float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max())
+                    for k in got)
+        n_valid = int(valid.sum())
+        print(f"  device metrics, {name} model ({n_valid} valid of {valid.shape[0]} "
+              f"rows, {gt_pts.shape[0]} GT points): device {t_dev:.3f} s, host "
+              f"oracle {t_host:.3f} s (strand consistency included); largest "
+              f"|device - host| over precision, recall, F1 {delta:.3e}; F1(b) "
+              f"device {[round(float(x), 4) for x in got['f1(b)']]}, host "
+              f"{[round(float(x), 4) for x in want['f1(b)']]} [{smi}]")
+        if not delta <= DEVICE_METRIC_GATE:
+            fail(f"device metrics of the {name} model differ from the host "
+                 f"oracle by {delta}")
+        out[name] = dict(device_s=t_dev, host_s=t_host, max_delta=delta,
+                         valid=n_valid, f1=[float(x) for x in got["f1(b)"]])
+    return out
+
+
+def step_ms_between(rows, lo, hi):
+    """Mean host ms of the steps lo+1 .. hi-1 (iterations after the run's
+    start) from the record's clock."""
+    start = rows[0]["it"]
+    idx = {r["it"] - start: i for i, r in enumerate(rows)}
+    dts = [(rows[idx[i]]["t"] - rows[idx[i] - 1]["t"]) * 1e3
+           for i in range(lo + 1, hi) if i in idx and idx[i] > 0]
+    return float(np.mean(dts)) if dts else float("nan")
+
+
+def async_stage3(tmp, sync, smi):
+    """Phase 13, step 2: 500 Stage-III iterations with --async_topology
+    from the merged model copied before phase 12's run, phase 12's flags
+    otherwise; held beside the synchronous run."""
+    from hairgs_tpu_torch.topo.async_events import TopologyWorker
+
+    # count the worker's launches and installs (the driver does not)
+    counted = {"launch": [], "install": 0}
+    launch, poll = TopologyWorker.launch, TopologyWorker.poll
+
+    def counting_launch(self, **kw):
+        counted["launch"].append(kw)
+        return launch(self, **kw)
+
+    def counting_poll(self, *a, **kw):
+        done = poll(self, *a, **kw)
+        counted["install"] += done
+        return done
+
+    TopologyWorker.launch, TopologyWorker.poll = counting_launch, counting_poll
+    try:
+        record, scene, model, launches, t_train, args, _ = run_stage3(
+            tmp, f"{tmp}/model_async", ("--async_topology",))
+    finally:
+        TopologyWorker.launch, TopologyWorker.poll = launch, poll
+    rows = record.rows
+    start = rows[0]["it"]
+    n_steps = rows[-1]["it"] - start
+    n_views = len(scene.get_cameras())
+    # the worker's launches: densify every 100 after 50 until 400, merge
+    # every 100 (STAGE3_FLAGS); growth at 250 stays synchronous
+    launch_its = list(range(100, n_steps + 1, 100))
+    installs = [r for r in rows if "t_async_pull" in r["dens"]]
+    print(f"  {n_steps} steps in {t_train:.1f} s ({n_steps / t_train:.3f} it/s over "
+          f"the whole call of training(); synchronous run "
+          f"{sync['steps'] / sync['seconds']:.3f} it/s) [{smi}]")
+    for r in installs:
+        d = r["dens"]
+        times = {k: d[k] for k in ("t_async_pull", "t_async_compute", "t_apply")}
+        counts = {k: v for k, v in d.items() if not k.startswith("t_")}
+        print(f"  installed at iter {r['it'] - start}: {times}; {counts} -> "
+              f"{r['count']} segments, {r['strands']} strands")
+    synced = [r for r in rows if r["loss"] is not None]
+    lam = args.lambda_dssim
+    photo = (1 - lam) * synced[-1]["parts"]["l1"] + lam * synced[-1]["parts"]["dssim"]
+    flights = []
+    sync_rows = sync["rows"]
+    for launch, r in zip(launch_its, installs):
+        inst = r["it"] - start
+        flights.append(dict(launch=launch, install=inst,
+                            step_ms=step_ms_between(rows, launch, inst),
+                            sync_step_ms=step_ms_between(sync_rows, launch, inst)))
+        print(f"  flight {launch} -> {inst}: step {flights[-1]['step_ms']:.3f} ms "
+              f"while out; the synchronous run's steps {launch + 1}-{inst - 1}: "
+              f"{flights[-1]['sync_step_ms']:.3f} ms")
+    bounds = [0] + [r["it"] - start for r in rows if r["dens"]] + [n_steps]
+    stretches = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        if hi - lo > 1:
+            stretches.append((lo + 1, hi - 1, step_ms_between(rows, lo, hi)))
+            print(f"  steps {lo + 1}-{hi - 1}: mean {stretches[-1][2]:.3f} ms")
+    metrics, _, _ = record.eval
+    f1 = [float(x) for x in metrics["f1(b)"]]
+    print(f"  final loss {synced[-1]['loss']:.6f} (synchronous "
+          f"{sync['loss_last']:.6f}); photometric {photo:.6f} (synchronous "
+          f"{sync['photo_last']:.6f}); F1(b) at 4 mm, 90 deg {f1[-1]:.4f} "
+          f"(synchronous {sync['f1'][-1]:.4f}); {model.num_segments} segments, "
+          f"{len(model.strands_info.list_strands)} strands; launches {launches}")
+    if not all(np.isfinite(r["loss"]) for r in synced) or \
+            not all(torch.isfinite(p).all() for p in model.params):
+        fail("non-finite loss or parameters in the async Stage-III run")
+    print(f"  worker launches {len(counted['launch'])} "
+          f"({[(k['densify'], k['merge']) for k in counted['launch']]}, "
+          f"(densify, merge)), installs {counted['install']}")
+    if len(counted["launch"]) != len(launch_its) \
+            or counted["install"] != len(counted["launch"]):
+        fail(f"{len(counted['launch'])} async events launched (expected at "
+             f"{launch_its}), {counted['install']} installed")
+    window = args.densify_until_iter - 1
+    if launches["composite_fwd"] != n_steps + n_views \
+            or launches["composite_bwd"] != window \
+            or launches["composite_bwd_nostats"] != n_steps - window:
+        fail(f"unexpected launches in the async Stage-III run: {launches}")
+    return dict(steps=n_steps, seconds=t_train, launches=launches,
+                events=[{k: r["dens"][k] for k in ("t_async_pull", "t_async_compute",
+                                                   "t_apply")} for r in installs],
+                flights=flights, stretches=stretches, loss_last=synced[-1]["loss"],
+                photo_last=photo, f1=f1, final_segments=model.num_segments)
+
+
+def count_c(name_counts):
+    """A wrapper of composite_pairs_fwd_cuda that also counts its launches
+    by channel count (the kernel's own counter does not split them)."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    inner = cp.composite_pairs_fwd_cuda
+
+    def wrapped(*args, **kw):
+        c = args[8] if len(args) > 8 else kw["num_channels"]
+        name_counts[c] = name_counts.get(c, 0) + 1
+        return inner(*args, **kw)
+
+    return inner, wrapped
+
+
+def view_inputs(model, cam, mask_type):
+    """The renderer's inputs for one view as the render driver builds them:
+    the model's channels, or the foreground indicator as 3 channels."""
+    from hairgs_tpu_torch.drivers.render import FG_BIN_TH
+    from hairgs_tpu_torch.models.hair import hair_render_inputs
+
+    inputs = hair_render_inputs(model.params, model.graph, cam.cam_center,
+                                model.active_sh_degree, model.dist_to_scale_factor)
+    if mask_type:
+        fg = (torch.sigmoid(model.params.mask[:, 0]) >= FG_BIN_TH) & \
+            model.graph.seg_active
+        inputs = dict(inputs, features=fg.to(torch.float32)[:, None].repeat(1, 3))
+    return inputs
+
+
+def render_driver_check(tmp, hair_scene, smi):
+    """Phase 13, step 3: the render driver, all five types, on phase 12's
+    final hair model and type 0 on phase 11's Gaussian model; the PNGs
+    counted; one view of type 0 (C = 7) and type 2 (C = 3) of the hair
+    model held against the plain forward."""
+    import glob
+
+    from hairgs_tpu_torch.config import RuntimeConfig
+    from hairgs_tpu_torch.drivers import render as render_driver
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.render.renderer import RasterConfig, paged_pair_table
+
+    by_c = {}
+    inner, wrapped = count_c(by_c)
+    cp.reset_launches()
+    cp.composite_pairs_fwd_cuda = wrapped
+    try:
+        t0 = time.perf_counter()
+        hair_times = render_driver.main(["-s", f"{tmp}/scene", "-m", f"{tmp}/model"])
+        t_hair = time.perf_counter() - t0
+        hair_launches = dict(cp.launches)
+        c3_launches = by_c.get(3, 0)
+        gauss_times = render_driver.main(["-s", f"{tmp}/scene", "-m",
+                                          f"{tmp}/model_gauss", "-t", "0"])
+        launches = dict(cp.launches)
+    finally:
+        cp.composite_pairs_fwd_cuda = inner
+    n_hair = len(glob.glob(f"{tmp}/model/render/**/*.png", recursive=True))
+    n_gauss = len(glob.glob(f"{tmp}/model_gauss/render/**/*.png", recursive=True))
+    for label, times in (("hair", hair_times), ("Gaussian", gauss_times)):
+        for t, v in times.items():
+            print(f"  render driver, {label} model, {t}: {1e3 * v['render_s'] / v['views']:.3f} "
+                  f"ms per view rendering, {1e3 * v['total_s'] / v['views']:.3f} ms "
+                  f"with the PNG writes [{smi}]")
+    print(f"  PNGs: {n_hair} (hair), {n_gauss} (Gaussian); launches {launches}, "
+          f"C = 3 forward launches {c3_launches}; hair driver {t_hair:.1f} s")
+    if n_hair != 5 * 2 * RENDER_VIEWS or n_gauss != 2 * RENDER_VIEWS:
+        fail(f"expected {10 * RENDER_VIEWS} and {2 * RENDER_VIEWS} PNGs, got "
+             f"{n_hair} and {n_gauss}")
+    if hair_launches["composite_fwd"] != 5 * RENDER_VIEWS \
+            or launches["composite_fwd"] != 6 * RENDER_VIEWS \
+            or c3_launches != 2 * RENDER_VIEWS \
+            or any(v for k, v in launches.items() if k != "composite_fwd"):
+        fail(f"unexpected render launches: {launches}, C = 3: {c3_launches}")
+
+    # one view of each instance against the plain forward, as the driver
+    # renders it (its RasterConfig from the flags' defaults)
+    rt = RuntimeConfig()
+    cfg = RasterConfig(max_tiles_per_gaussian=rt.max_tiles_per_gaussian,
+                       max_pairs_per_tile=rt.max_pairs_per_tile,
+                       chunk=rt.composite_chunk, use_pallas=True,
+                       alpha_min=rt.alpha_min)
+    model = hair_scene["model"]
+    cam = hair_scene["scene"].get_cameras()[0]
+    grid_w = (cam.width + 15) // 16
+    max_chunks = cfg.max_pairs_per_tile // cfg.chunk
+    checks = {}
+    for mask_type, C in ((False, 7), (True, 3)):
+        with torch.no_grad():
+            _, binning, geo, feat = paged_pair_table(
+                cam, **view_inputs(model, cam, mask_type), cov3d_precomp=None,
+                active=model.graph.seg_active, mean2d_offset=None,
+                scale_modifier=1.0, width=cam.width, height=cam.height, config=cfg)
+        starts, counts = binning.starts, binning.counts
+        args = (geo, feat, starts, counts, grid_w, 16, cfg.chunk, max_chunks, C)
+        k_out, k_t, _, _ = cp.composite_pairs_fwd_cuda(*args)
+        p_out, p_t, _, _ = cp.composite_pairs_fwd_plain(*args)
+        torch.cuda.synchronize()
+        err = max((k_out - p_out).abs().max().item(), (k_t - p_t).abs().max().item())
+        ms = cuda_ms(lambda: cp.composite_pairs_fwd_cuda(*args), 20)
+        plain_ms = cuda_ms(lambda: cp.composite_pairs_fwd_plain(*args), 1)
+        gates = gate_counts(geo, starts, counts, grid_w)
+        bound, bound_by = fwd_bound_ms(counts, cfg.chunk, C, gates)
+        print(f"  forward C = {C} at hair view 0: image and T max abs err "
+              f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms by {bound_by}; pairs {int(counts.sum())}, "
+              f"pair-pixels passing the gates {gates[1]} of {gates[0]} [{smi}]")
+        if not err < FWD_GATE or not torch.isfinite(k_out).all():
+            fail(f"the C = {C} forward disagrees with its plain version")
+        checks[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=bound_by)
+    return dict(hair=hair_times, gaussian=gauss_times, launches=launches,
+                c3_launches=c3_launches, png=(n_hair, n_gauss), checks=checks)
+
+
+def gabor_check(tmp, keep, smi):
+    """Phase 13, step 4: generate_dataset(orientation_source="gabor") on
+    phase 11's strands with phase 11's GT raster configuration (kernel
+    path, 16 views at 1000^2), the Gabor bank timed per view; then the
+    card's estimate_orientation_field against the CPU's on a crop."""
+    from PIL import Image
+
+    from hairgs_tpu_torch.data import vision
+    from hairgs_tpu_torch.data.synthetic import generate_dataset
+
+    per_view = []
+    inner = vision.estimate_orientation_field
+
+    def timed(image, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(image, *a, **k)
+        torch.cuda.synchronize()
+        per_view.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    vision.estimate_orientation_field = timed
+    try:
+        t0 = time.perf_counter()
+        root = generate_dataset(f"{tmp}/gabor", keep["hair"], num_cameras=USC_CAMERAS,
+                                width=USC_SIZE, height=USC_SIZE,
+                                init_subsample=USC_SUBSAMPLE, raster_cfg=keep["gt_cfg"],
+                                orientation_source="gabor", device="cuda")
+        t_data = time.perf_counter() - t0
+    finally:
+        vision.estimate_orientation_field = inner
+    rgb = np.asarray(Image.open(f"{root}/images/image_1.png"))
+    h0 = (rgb.shape[0] - GABOR_CROP) // 2
+    w0 = (rgb.shape[1] - GABOR_CROP) // 2
+    crop = np.ascontiguousarray(rgb[h0:h0 + GABOR_CROP, w0:w0 + GABOR_CROP])
+    t_card, t_cpu = [], []
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outs[dev] = [t.cpu().numpy() for t in vision.estimate_orientation_field(
+            torch.tensor(crop, device=dev))]
+        (t_card if dev == "cuda" else t_cpu).append(time.perf_counter() - t0)
+    same = outs["cuda"][0] == outs["cpu"][0]
+    conf_err = float(np.abs(outs["cuda"][1] - outs["cpu"][1])[same].max())
+    orient = np.asarray(Image.open(f"{root}/orientations/image_1_orientation.png"))
+    print(f"  Gabor dataset: {len(per_view)} views, {t_data:.1f} s in all; the "
+          f"Gabor bank {np.mean(per_view):.3f} ms per view (min "
+          f"{min(per_view):.3f}, max {max(per_view):.3f}) [{smi}]; view 1's "
+          f"orientation map has {int((orient > 0).sum())} nonzero pixels")
+    print(f"  {GABOR_CROP}x{GABOR_CROP} crop, card against CPU: orientation index "
+          f"equal on {same.mean():.6f} of the pixels, confidence max abs error "
+          f"{conf_err:.3e} where it is")
+    if len(per_view) != USC_CAMERAS or same.mean() < GABOR_INDEX_SHARE \
+            or not conf_err <= GABOR_CONF_ERR:
+        fail("the Gabor bank on the card disagrees with the CPU")
+    return dict(views=len(per_view), ms_per_view=float(np.mean(per_view)),
+                dataset_s=t_data, crop_index_share=float(same.mean()),
+                crop_conf_err=conf_err)
+
+
+def usc_parse_check(tmp, smi):
+    """Phase 13, step 5: a USC sample written by
+    scripts/synthesize_usc_sample.py (numpy only; the USC format has 10000
+    strands, of which 90% are 1-vertex stubs here: ~1000 strands of 100
+    points), then the parse driver with Gabor orientations."""
+    import os
+
+    from hairgs_tpu_torch.drivers import parse_usc_hairsalon
+    from hairgs_tpu_torch.io.dataset import read_colmap_scene_info
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    usc = f"{tmp}/usc"
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "scripts", "synthesize_usc_sample.py"),
+         "--out", usc, "--num_strands", "10000", "--stub_fraction", "0.9",
+         "--seed", "0"], capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        fail(f"synthesize_usc_sample.py failed: {out.stderr[-2000:]}")
+    print(f"  {out.stdout.strip()}")
+    t0 = time.perf_counter()
+    written = parse_usc_hairsalon.main(["-d", usc, "-o", f"{tmp}/usc_scene",
+                                        *USC_PARSE_FLAGS])
+    t_parse = time.perf_counter() - t0
+    scene = written[0]
+    counts = {sub: len(os.listdir(os.path.join(scene, sub)))
+              for sub in ("images", "masks", "orientations")}
+    info = read_colmap_scene_info(scene)
+    print(f"  parse driver {USC_PARSE_FLAGS}: {t_parse:.1f} s [{smi}]; files "
+          f"{counts}; COLMAP scene: {len(info.cameras)} cameras, "
+          f"{info.points.shape[0]} points")
+    if counts != {"images": 4, "masks": 4, "orientations": 8} \
+            or len(info.cameras) != 4 or info.points.shape[0] == 0 \
+            or not all(os.path.exists(os.path.join(scene, f)) for f in (
+                "hair_eval_data.npz", "head_reconstruction_data.npz")):
+        fail("the USC parse driver wrote an incomplete scene")
+    return dict(seconds=t_parse, cameras=len(info.cameras),
+                points=int(info.points.shape[0]))
+
+
+def grid_check(hair_scene):
+    """Phase 13, step 6: the 2D grid of phase 12's hair model, its views
+    rendered with the kernel path."""
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.visualization import (
+        create_subplots_from_dict,
+        render_image_dict_from_cameras,
+    )
+
+    cams = hair_scene["scene"].get_cameras()
+    cfg = RasterConfig(max_tiles_per_gaussian=16, max_pairs_per_tile=2048,
+                       chunk=128, use_pallas=True)
+    cp.reset_launches()
+    t0 = time.perf_counter()
+    images = render_image_dict_from_cameras(hair_scene["model"], cams, config=cfg)
+    grid = create_subplots_from_dict(images, 1920, 1080)
+    t_grid = time.perf_counter() - t0
+    print(f"  2D grid of {len(images)} images: shape {grid.shape}, {t_grid:.2f} s, "
+          f"launches {dict(cp.launches)}")
+    if grid.shape != (1080, 1920, 3) or len(images) != 2 * RENDER_VIEWS \
+            or cp.launches["composite_fwd"] != RENDER_VIEWS or not grid.any():
+        fail("the 2D grid is wrong")
+    return dict(images=len(images), seconds=t_grid)
 
 
 def main():
@@ -1518,16 +1954,34 @@ def main():
     tmp = tmp_dir.name
     print("phase 11: the Stage-I driver on a USC-scale scene")
     t_phase = time.perf_counter()
-    stage1 = stage1_driver(device, tmp)
+    stage1, keep1 = stage1_driver(device, tmp)
+    # phase 13 renders this Gaussian model with the render driver
+    shutil.copytree(f"{tmp}/model", f"{tmp}/model_gauss")
     print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
 
     print("phase 12: Stage II, Stage III and evaluation on phase 11's capture")
     t_phase = time.perf_counter()
     hair_grads_against_cpu(cfg)
     stage2 = stage2_merge(tmp, stage1["f1"])
-    stage3 = stage3_driver(tmp)
-    tmp_dir.cleanup()
+    # phase 13's async run starts from the same merged model
+    shutil.copytree(f"{tmp}/model", f"{tmp}/model_async")
+    stage3, keep3 = stage3_driver(tmp)
     print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+    print("phase 13: device metrics, async Stage III, the render driver, the "
+          "Gabor bank, the USC parse driver and the 2D grid")
+    t_phase = time.perf_counter()
+    phase13 = {"device_metrics": device_metrics_check(
+        [("gaussian", keep1["model"]), ("hair", keep3["model"])], keep1["gt"], smi)}
+    synced = [r for r in keep3["record"].rows if r["loss"] is not None]
+    phase13["async_stage3"] = async_stage3(
+        tmp, dict(stage3, rows=keep3["record"].rows, loss_last=synced[-1]["loss"]), smi)
+    phase13["render_driver"] = render_driver_check(tmp, keep3, smi)
+    phase13["gabor"] = gabor_check(tmp, keep1, smi)
+    phase13["usc_parse"] = usc_parse_check(tmp, smi)
+    phase13["grid"] = grid_check(keep3)
+    tmp_dir.cleanup()
+    print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -1553,6 +2007,10 @@ def main():
          "launches": bf16_launches["composite_bwd_bf16"],
          "max_abs_err": bf_bwd_err, "ms": kb_bwd_ms, "plain_ms": pb_bwd_ms,
          "bound_ms": bbb, "bound_by": bbb_by, "library_ms": None},
+        {"name": "composite_fwd_c3", "route": "cuda", "source": src + "composite_fwd.cu",
+         "replaces": "hairgs_tpu/render/pallas_composite.py:153",
+         "launches": phase13["render_driver"]["c3_launches"],
+         **phase13["render_driver"]["checks"][3], "library_ms": None},
         probe_entry,
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s")
@@ -1560,7 +2018,7 @@ def main():
                       "host_median_step_ms": median_ms,
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
                       "stage1_driver": stage1, "stage2_merge": stage2,
-                      "stage3_driver": stage3, "card": smi}))
+                      "stage3_driver": stage3, "phase13": phase13, "card": smi}))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -114,13 +114,15 @@ class RuntimeConfig:
     # the +0.3px low-pass uncompensated)
     alpha_min: float = 1.0 / 255.0  # per-pair alpha gate (reference value
     # 1/255, forward.cu:343-351); splats below it get zero gradient
-    device_eval: str = "auto"  # auto: in-training metrics on the host;
-    # "true" needs evaluation/device_metrics.py (ROADMAP Queue 1 item 7)
+    device_eval: str = "auto"  # in-training strand metrics on the model's
+    # device (evaluation/device_metrics.py): "true", or "auto" when the model
+    # lives on a CUDA device; otherwise, and for the final eval, the host
     log_interval: int = 10  # scalar-logging/sync cadence (the reference
     # syncs every iteration via loss.item(), train.py:160)
     profile_steps: int = 0  # >0: write a torch.profiler trace of these steps
     debug: bool = False  # dump the state on a non-finite loss
-    async_topology: bool = False  # hair models only (ROADMAP Queue 1 item 6)
+    async_topology: bool = False  # hair models only: densify and merge
+    # events computed on a worker thread (topo/async_events.py)
 
 
 _SHORTHANDS = {"source_path": "s", "model_path": "m", "images": "i", "resolution": "r"}

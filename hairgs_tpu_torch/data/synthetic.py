@@ -18,7 +18,8 @@ through whichever path `raster_cfg.use_pallas` selects: the default
 configuration is the JAX package's (the XLA path); `use_pallas=True` renders
 with the compositor kernels. `use_lighting` shades the segments with the
 reference's Lambert term from kNN-PCA normals (ops/knn.py).
-`orientation_source="gabor"` needs data/vision.py, which is not ported yet.
+`orientation_source="gabor"` replaces the analytic orientation maps by
+the reference's Gabor bank on the rendered RGB (data/vision.py), on `device`.
 """
 
 import math
@@ -197,11 +198,6 @@ def generate_dataset(
     """
     from PIL import Image as PILImage
 
-    if orientation_source == "gabor":
-        raise NotImplementedError(
-            "orientation_source='gabor' needs the port of data/vision.py "
-            "(ROADMAP Queue 1 item 8)")
-
     os.makedirs(output, exist_ok=True)
     for sub in ("images", "masks", "orientations"):
         os.makedirs(os.path.join(output, sub), exist_ok=True)
@@ -219,8 +215,9 @@ def generate_dataset(
         focal_length_px=500.0 * width / 1000.0,
     )
 
+    dev = resolve_device(device)
     gauss = strand_segments_to_gaussians(hair, use_lighting=use_lighting,
-                                         device=device)
+                                         device=dev)
     for cam_id, cam in cameras.items():
         img, camera, out = _render_strand_channels(
             gauss, cam, extrinsics[cam_id], raster_cfg, device)
@@ -235,6 +232,11 @@ def generate_dataset(
         PILImage.fromarray((mask * 255).astype(np.uint8)).save(
             os.path.join(output, "masks", f"image_{cam_id}.png")
         )
+        if orientation_source == "gabor":
+            from hairgs_tpu_torch.data import vision
+
+            theta, conf = (t.cpu().numpy() for t in vision.estimate_orientation_field(
+                torch.tensor((rgb * 255).astype(np.uint8), device=dev)))
         PILImage.fromarray((theta * 255 / math.pi).astype(np.uint8)).save(
             os.path.join(output, "orientations", f"image_{cam_id}_orientation.png")
         )

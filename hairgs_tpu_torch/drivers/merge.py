@@ -10,11 +10,15 @@ assert it is a GaussianModel, convert (to_hair_gaussian_model), loop
 compute_endpoint_pair_to_merge + merge_endpoint_pairs until no candidates,
 save the 5-element hair PLY. The models live on `--data_device` ("cuda"
 unless the CPU is asked for); the candidate search and the strand walk run
-on the host in the native library.
+on the host in the native library. `--vis3d` shows the reference's pyvista
+plots of the Gaussians, the endpoints and each merge step (when pyvista is
+installed).
 """
 
 import sys
 from argparse import ArgumentParser
+
+import numpy as np
 
 from hairgs_tpu_torch.config import (
     GeneralConfig,
@@ -63,12 +67,33 @@ def main(args):
     assert scene.head_reconstruction is not None, (
         "head_reconstruction_data.npz required for scalp anchoring"
     )
+    # live 3D plots (reference merge.py:44-76,118-158; pyvista-gated)
+    viz_cb = None
     if gp.vis3d:
-        print("[vis3d] the 3D merge plots are not ported yet (ROADMAP Queue 1 "
-              "item 8); off")
+        try:
+            from hairgs_tpu_torch.visualization import pv_visualize
+
+            pv_visualize(
+                point_clouds={"blue": model.host_arrays()["xyz"][: model.count]},
+                title="Initial Gaussians",
+            )
+        except ImportError as e:
+            print(f"[vis3d] disabled ({e})")
+            gp.vis3d = False
 
     hair = model.to_hair_model(scene.head_reconstruction.scalp_verts)
     hair.training_setup(op)
+    if gp.vis3d:
+        from hairgs_tpu_torch.visualization import make_merge_viz_callback, pv_visualize
+
+        pv_visualize(
+            point_clouds={
+                "blue": hair.host_arrays(keys=("endpoints",))["endpoints"],
+                "red": np.asarray(hair.ref_strand_root),
+            },
+            title="Endpoints (B) and GT strand roots (R)",
+        )
+        viz_cb = make_merge_viz_callback(hair)
     converted = (hair.num_segments, hair.num_endpoints,
                  len(hair.strands_info.list_strands))
     print(f"Converted to hair model: {hair.num_segments} segments")
@@ -83,7 +108,8 @@ def main(args):
               f"{len(hair.strands_info.list_strands)} strands "
               f"({times['total']:.3f} s, candidates {times['candidates']:.3f} s)")
 
-    iters = stage2_merge_loop(hair, max_iterations=op.iterations, callback=progress)
+    iters = stage2_merge_loop(hair, max_iterations=op.iterations, callback=progress,
+                              viz_callback=viz_cb)
     print(f"Merging converged after {iters} iterations")
 
     metrics = None

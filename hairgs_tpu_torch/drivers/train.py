@@ -14,17 +14,21 @@ every save_frequency and eval at eval_frequency and at the end. A model
 directory whose last checkpoint is a hair PLY (Stage II's output) trains
 the strand graph (Stage III): the smoothness (and magnet) terms, the
 merge-threshold schedule, and hair merging every merge_interval and
-growing every growth_interval (at most growth_max_events times), all
-synchronous between steps.
+growing every growth_interval (at most growth_max_events times), between
+steps; with `--async_topology` the densify and merge events are computed
+on a worker thread while training goes on (topo/async_events.py).
 
 The model and cameras live on `--data_device` (default "cuda"); with
 `--use_pallas auto` a CUDA device takes the paged path, whose compositor
 passes are the hand-written kernels, and the CPU takes the XLA path. The
 three adaptive controllers resize the pair table between steps; in torch a
-new size costs no recompilation. Not ported yet, each named where it
-raises: topology events on a worker thread (`--async_topology`, ROADMAP
-Queue 1 item 6, left over), device-side in-training metrics (item 7), the
-viewer and visualisations (item 8) and Gaussian-axis sharding (item 9).
+new size costs no recompilation. The in-training strand metrics run on the
+model's device (`--device_eval`, evaluation/device_metrics.py; `auto` on a
+CUDA model); the final evaluation takes the host oracle. The SIBR viewer
+(`--ip`, `--port`), the 2D grid (`--vis2d`) and the pyvista strand view
+(`--vis3d`) are served as in train.py. Gaussian-axis sharding
+(`--gauss_shard > 1`) needs parallel/, not ported yet (ROADMAP Queue 1
+item 9).
 """
 
 import os
@@ -151,6 +155,13 @@ def prepare_output_path(args):
     save_cfg_args(args.model_path, args)
 
 
+def use_device_eval(device_eval: str, device: torch.device) -> bool:
+    """Whether the non-final evaluations run on the model's device:
+    "true" always, "auto" when the model lives on a CUDA device (as JAX's
+    auto does on its accelerator), otherwise the host oracle."""
+    return device_eval == "true" or (device_eval == "auto" and device.type == "cuda")
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -196,20 +207,11 @@ def training(mp, op, gp, rt, args, logger=None):
         raise NotImplementedError(
             "--gauss_shard > 1 needs the port of parallel/slab.py "
             "(ROADMAP Queue 1 item 9)")
-    if rt.device_eval == "true":
-        raise NotImplementedError(
-            "--device_eval true needs the port of evaluation/device_metrics.py "
-            "(ROADMAP Queue 1 item 7); 'auto' evaluates on the host")
     device = resolve_device(mp.data_device)
     scene = Scene(args, shuffle=True, capacity_round=rt.capacity_round)
     model = scene.gaussians
     model.training_setup(op)
     is_hair = isinstance(model, HairModel)
-    if is_hair and rt.async_topology:
-        raise NotImplementedError(
-            "--async_topology needs the port of topo/async_events.py "
-            "(ROADMAP Queue 1 item 6, left over); topology events run "
-            "synchronously without it")
     logger = get_logger(args) if logger is None else logger
     info = TrainingInfo(iter=scene.loaded_iter)
 
@@ -262,15 +264,45 @@ def training(mp, op, gp, rt, args, logger=None):
 
     raster_cfg = make_raster_cfg(rt.max_tiles_per_gaussian)
 
-    if gp.ip or gp.vis2d or gp.vis3d:
-        print("[gui] the network viewer and the 2D/3D visualisations are not "
-              "ported yet (ROADMAP Queue 1 item 8); off")
-    if rt.async_topology and not is_hair and not gp.quiet:
-        print("[topo] --async_topology applies to hair models only; ignored")
+    # interactive 3D strand view (reference train.py:61-62; pyvista-gated)
+    vis3d_plotter = vis3d_polydata = None
+    if gp.vis3d and is_hair:
+        try:
+            from hairgs_tpu_torch.visualization import create_pv_background_plotter
 
-    def run_eval():
+            vis3d_plotter, vis3d_polydata = create_pv_background_plotter(
+                model, cameras, background=True)
+        except ImportError as e:
+            print(f"[vis3d] disabled ({e})")
+
+    # the in-training evaluations on the device (evaluation/device_metrics.py);
+    # the final one keeps the host oracle, whose strand consistency needs
+    # sparse per-strand vote counts
+    device_eval = use_device_eval(rt.device_eval, device)
+    gt_device = None
+
+    def run_eval_device():
+        nonlocal gt_device
+        from hairgs_tpu_torch.evaluation.device_metrics import compute_metrics_device
+        from hairgs_tpu_torch.evaluation.eval_data import (
+            eval_points_device_from_gaussian,
+            eval_points_device_from_hair,
+        )
+
+        if gt_device is None:
+            gt_device = tuple(torch.tensor(np.asarray(a, np.float32), device=device)
+                              for a in (scene.gt.points, scene.gt.directions))
+        pts, dirs, valid = (eval_points_device_from_hair(model) if is_hair
+                            else eval_points_device_from_gaussian(model))
+        return compute_metrics_device(pts, dirs, *gt_device, pred_valid=valid,
+                                      bidirectional=op.bidirectional_eval)
+
+    def run_eval(final: bool = False):
         if scene.gt is None:
             return None, None
+        info.eval_on_device = device_eval and not final
+        if info.eval_on_device:
+            return run_eval_device()
         pred = (compute_eval_data_from_hair(model) if is_hair
                 else compute_eval_data_from_gaussian(model))
         info.pred = pred
@@ -320,6 +352,67 @@ def training(mp, op, gp, rt, args, logger=None):
         return pairs, valid, magnet
 
     smooth_pairs, smooth_valid, magnet_idx = strand_tables()
+
+    topo_worker = None
+    if is_hair and rt.async_topology:
+        from hairgs_tpu_torch.topo.async_events import TopologyWorker
+
+        topo_worker = TopologyWorker(model)
+    elif rt.async_topology and not gp.quiet:
+        print("[topo] --async_topology applies to hair models only; ignored")
+
+    # live viewer (SIBR protocol; train.py:95-131)
+    gui = None
+    if gp.ip:
+        from hairgs_tpu_torch.network_gui import NetworkGUI
+
+        gui = NetworkGUI()
+        try:
+            gui.init(gp.ip, gp.port)
+        except OSError as e:
+            print(f"[gui] disabled ({e})")
+            gui = None
+
+    def serve_gui(iteration):
+        if gui is None:
+            return
+        if gui.conn is None:
+            gui.try_connect()
+        while gui.conn is not None:
+            try:
+                cam, do_training, _, _, keep_alive, scaling_mod = gui.receive()
+                img_bytes = None
+                if cam is not None:
+                    from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
+                    from hairgs_tpu_torch.models.hair import hair_render_inputs
+                    from hairgs_tpu_torch.render.renderer import render
+
+                    c = cam.to_camera(device)
+                    with torch.no_grad():
+                        if is_hair:
+                            inputs = hair_render_inputs(
+                                model.params, model.graph, c.cam_center,
+                                model.active_sh_degree, model.dist_to_scale_factor)
+                            active = model.graph.seg_active
+                        else:
+                            inputs = gaussian_render_inputs(
+                                model.params, c.cam_center, model.active_sh_degree)
+                            active = model.active
+                        out = render(c, **inputs, active=active,
+                                     scale_modifier=scaling_mod or 1.0,
+                                     width=cam.width, height=cam.height,
+                                     config=raster_cfg)
+                        rgb = np.clip(out["render"][..., :3].cpu().numpy(), 0, 1)
+                    img_bytes = memoryview((rgb * 255).astype(np.uint8))
+                gui.send(img_bytes, args.source_path)
+                if do_training and (iteration < op.iterations or not keep_alive):
+                    break
+            except Exception as e:
+                # a viewer that disconnects or misbehaves must not stop the
+                # training: drop the connection and listen again
+                print(f"[gui] viewer connection dropped ({e!r})")
+                gui.conn.close()
+                gui.conn = None
 
     profile_dir = os.path.join(args.model_path, "profile")
     profiler = None
@@ -377,6 +470,7 @@ def training(mp, op, gp, rt, args, logger=None):
             elif profiler is not None and step_count == 2 + rt.profile_steps:
                 stop_profiler()
                 profiler = None
+        serve_gui(iteration)
         info.iter = scene.loaded_iter + iteration
         info.densification_info = {}
         info.topology_ms = None
@@ -515,42 +609,69 @@ def training(mp, op, gp, rt, args, logger=None):
             info.loss_dict = None
             info.train_psnr = None
 
-        # --- topology cadence (train.py:171-200, 756-783): densify, reset,
-        # then for a hair model merge and grow, synchronous between steps;
-        # a densify and a merge in the same iteration share one host mirror
+        # --- topology cadence (train.py:171-200, 725-783): densify, reset,
+        # then for a hair model merge and grow
         in_window = iteration < op.densify_until_iter
         due_densify = (in_window and iteration > op.densify_from_iter
                        and crossed(op.densification_interval))
         due_reset = in_window and crossed(op.opacity_reset_interval)
         due_merge = is_hair and crossed(op.merge_interval)
         due_grow = is_hair and crossed(op.growth_interval) and grow_allowed()
-        topo_changed = due_densify or due_merge or due_grow
-        arrays_cache = None
-        if topo_changed:
-            # time the event alone: the queued steps finish first
-            _sync(device)
+        size_th = (op.prune_max_radii_2d if iteration > op.opacity_reset_interval
+                   else None)
+        if topo_worker is not None:
+            # densify and merge are computed on the worker from a snapshot
+            # and installed by poll() between later steps. The opacity reset
+            # and growth change surviving rows on the host, so they stay
+            # synchronous and settle a flight first; so do a new launch and
+            # the final iteration, whose launch is settled at once so the
+            # final evaluation and checkpoint see it, as in a synchronous run
             t_topo = time.perf_counter()
-        if due_densify:
-            size_th = op.prune_max_radii_2d if iteration > op.opacity_reset_interval else None
-            if is_hair:
-                _, arrays_cache = hair_densification(
-                    model, scene.cameras_extent, size_th, info,
-                    return_arrays=True)
-            else:
-                model.densification(scene.cameras_extent, size_th, info)
-        if due_reset:
-            if is_hair:
+            final = iteration >= op.iterations
+            topo_changed = topo_worker.poll(
+                force=due_reset or due_grow or due_densify or due_merge or final,
+                training_info=info)
+            if due_reset:
                 hair_reset_opacity(model)
-                arrays_cache = None  # the opacity plane changed on the device
-            else:
-                model.reset_opacity()
-            if not gp.quiet:
-                print(f"[densify] iter {iteration}: opacity reset")
-        if due_merge:
-            hair_merging(model, info, arrays=arrays_cache)
-        if due_grow:
-            hair_growing(model, info, growth_length=op.growth_length)
-            growth_events_done += 1
+            if due_grow:
+                hair_growing(model, info, growth_length=op.growth_length)
+                growth_events_done += 1
+                topo_changed = True
+            if due_densify or due_merge:
+                topo_worker.launch(densify=due_densify, merge=due_merge,
+                                   extent=scene.cameras_extent, size_th=size_th)
+                if final:
+                    topo_worker.poll(force=True, training_info=info)
+                    topo_changed = True
+        else:
+            # synchronous between steps; a densify and a merge in the same
+            # iteration share one host mirror
+            topo_changed = due_densify or due_merge or due_grow
+            arrays_cache = None
+            if topo_changed:
+                # time the event alone: the queued steps finish first
+                _sync(device)
+                t_topo = time.perf_counter()
+            if due_densify:
+                if is_hair:
+                    _, arrays_cache = hair_densification(
+                        model, scene.cameras_extent, size_th, info,
+                        return_arrays=True)
+                else:
+                    model.densification(scene.cameras_extent, size_th, info)
+            if due_reset:
+                if is_hair:
+                    hair_reset_opacity(model)
+                    arrays_cache = None  # the opacity plane changed on the device
+                else:
+                    model.reset_opacity()
+            if due_merge:
+                hair_merging(model, info, arrays=arrays_cache)
+            if due_grow:
+                hair_growing(model, info, growth_length=op.growth_length)
+                growth_events_done += 1
+        if due_reset and not gp.quiet:
+            print(f"[densify] iter {iteration}: opacity reset")
         if topo_changed:
             if is_hair:
                 smooth_pairs, smooth_valid, magnet_idx = strand_tables()
@@ -562,14 +683,42 @@ def training(mp, op, gp, rt, args, logger=None):
                         if is_hair else f"{model.count} Gaussians")
                 print(f"[densify] iter {iteration}: {info.densification_info}"
                       f" -> {size} in {info.topology_ms:.1f} ms")
-        # the 2D grid of the visualisations is not ported (ROADMAP Queue 1
-        # item 8)
-        info.composed_image = None
+
+        # --- 2D visualization grid (train.py:785-812; logged, shown with
+        # --vis2d where cv2 and a display are present) and the live 3D view
+        if crossed(gp.update_vis2d_frequency):
+            from hairgs_tpu_torch.visualization import create_subplots_from_dict
+
+            def u8(t):
+                return (np.clip(t.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+
+            info.composed_image = create_subplots_from_dict(
+                {"render": u8(image), "gt": u8(cam.image)}, 1280, 480)
+            if gp.vis2d:
+                try:
+                    import cv2
+
+                    cv2.imshow("Image Grid",
+                               cv2.cvtColor(info.composed_image, cv2.COLOR_RGB2BGR))
+                    cv2.waitKey(1)
+                except Exception as e:  # no cv2, or no display
+                    print(f"[vis2d] disabled ({e})")
+                    gp.vis2d = False
+            if vis3d_plotter is not None:
+                from hairgs_tpu_torch.visualization import update_polydata_from_hair
+
+                update_polydata_from_hair(vis3d_polydata, model)
+                vis3d_plotter.render()
+                if hasattr(vis3d_plotter, "app"):
+                    vis3d_plotter.app.processEvents()
+        else:
+            info.composed_image = None
 
         # --- eval / log / save
         if crossed(gp.eval_frequency) or iteration >= op.iterations:
             if scene.gt is not None:
-                info.eval_metrics, info.eval_thresholds = run_eval()
+                info.eval_metrics, info.eval_thresholds = run_eval(
+                    final=iteration >= op.iterations)
             run_image_eval()
         else:
             info.image_metrics = None
@@ -580,6 +729,10 @@ def training(mp, op, gp, rt, args, logger=None):
 
     if profiler is not None:
         stop_profiler()
+    if vis3d_plotter is not None:  # reference train.py:263-265
+        vis3d_plotter.close()
+    if gui is not None:
+        gui.close()
     total = time.time() - start_time
     print(f"Training completed in {total:.1f}s "
           f"({iteration / max(total, 1e-9):.2f} it/s, "

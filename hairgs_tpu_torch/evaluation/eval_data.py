@@ -1,7 +1,7 @@
 """Adapters converting models / files into HairEvalData for metric
-evaluation (counterpart of hairgs_tpu/evaluation/eval_data.py, host path;
-the device-side point sets come with device_metrics.py, ROADMAP Queue 1
-item 7).
+evaluation (counterpart of hairgs_tpu/evaluation/eval_data.py): the host
+converters, and the device-side point sets that evaluation/device_metrics.py
+matches without pulling the model.
 
 Parity target: data/eval_data.py — converters from live models (l.121-171),
 own checkpoint PLYs (l.174-186), and external method outputs (Strand
@@ -13,6 +13,61 @@ import torch
 
 from hairgs_tpu_torch.io.npz import HairEvalData, load_hair_eval_data_npz
 from hairgs_tpu_torch.io.ply import count_ply_elements, read_ply
+
+
+def eval_points_device_from_gaussian(model):
+    """(points, directions, valid) on the model's device over the
+    capacity-padded arena: the in-training counterpart of
+    compute_eval_data_from_gaussian (no host pull; padded rows masked by
+    `valid`). Foreground by the opacity and mask thresholds
+    (scene/gaussian_model.py:727-795)."""
+    from hairgs_tpu_torch.models.gaussian import (
+        FG_BIN_TH,
+        OPACITY_TH,
+        gaussian_activations,
+        gaussian_orientation,
+    )
+
+    p = model.params
+    with torch.no_grad():
+        act = gaussian_activations(p)
+        valid = (model.active
+                 & (act["opacity"][:, 0] >= OPACITY_TH)
+                 & (act["mask"][:, 0] >= FG_BIN_TH))
+        return p.xyz.detach(), gaussian_orientation(p), valid
+
+
+def eval_points_device_from_hair(model):
+    """(points, directions, valid) on the device for a HairModel: per
+    segment of the strands info (the foreground segments the host
+    converter walks), its first endpoint in strand order and its
+    normalised direction, the point and direction set of
+    compute_eval_data_from_hair, which the metrics take in any order.
+
+    JAX's counterpart takes each segment's stored first endpoint instead;
+    the strand walk runs some segments the other way and flips strands to
+    start at the scalp, so its set differs from the host's (on the H100
+    smoke capture its F1(b) read 0.5177 against the host oracle's 0.5263).
+    The per-row order comes from the host-side strands info, which the
+    topology events keep current; the endpoints stay on the device."""
+    from hairgs_tpu_torch.core.maths import safe_norm
+
+    cap = model.graph.endpoint_pairs.shape[0]
+    ends = np.full((cap, 2), 0, np.int64)
+    valid = np.zeros(cap, bool)
+    info = model.strands_info
+    if info is not None and info.list_strands:
+        rows = np.concatenate(info.list_strands_segments_id)
+        ends[rows] = np.concatenate(info.list_strands, axis=0)
+        valid[rows] = True
+    dev = model.device
+    ends = torch.from_numpy(ends).to(dev)
+    ep = model.params.endpoints
+    with torch.no_grad():
+        start = ep[ends[:, 0]]
+        d = ep[ends[:, 1]] - start
+        dirs = d / safe_norm(d, dim=-1, keepdim=True)
+    return start, dirs, torch.from_numpy(valid).to(dev)
 
 
 def compute_eval_data_from_gaussian(model) -> HairEvalData:

@@ -29,6 +29,8 @@ class TrainingInfo:
     pred: Optional[Any] = None
     # wall ms of this iteration's densification event (None without one)
     topology_ms: Optional[float] = None
+    # whether eval_metrics came from the device (evaluation/device_metrics.py)
+    eval_on_device: bool = False
 
 
 class Logger:

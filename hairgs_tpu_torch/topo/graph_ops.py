@@ -1,5 +1,5 @@
 """Host-side strand-graph topology operations for the hair model
-(counterpart of hairgs_tpu/topo/graph_ops.py, its synchronous events).
+(counterpart of hairgs_tpu/topo/graph_ops.py).
 
 Parity target: scene/hair_gaussian_model.py —
 - cat_segments / prune_segments with index compaction (l.534-617)
@@ -8,14 +8,16 @@ Parity target: scene/hair_gaussian_model.py —
 - merging (l.1079-1096), growing (l.1098-1203), reset_opacity (l.1364-1371)
 - clean_gaussians (l.1502-1515)
 
-These run on numpy between train steps, on the live rows pulled to the host.
+These run on numpy between train steps, on the live rows pulled to the host,
+or (`compute_topology_update`, `apply_topology_update`) on a snapshot on a
+worker thread while training goes on (topo/async_events.py).
 Adam moments ride along on the device: surviving rows keep their moments,
 new rows start at zero — matching _cat/_prune_tensor_in_optimizer
 (l.482-532). No strategy draws a random number.
 """
 
 import time
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -36,10 +38,11 @@ class HairHostState:
     (`ep_src`, `seg_src`) and install() applies them on the device.
 
     `arrays` hands in a just-installed host mirror to skip the pull
-    (densify -> merge in the same topology event).
+    (densify -> merge in the same topology event); `stats` likewise hands
+    in densification statistics pulled beforehand (the async snapshot).
     """
 
-    def __init__(self, model, arrays=None):
+    def __init__(self, model, arrays=None, stats=None):
         from hairgs_tpu_torch.core.hostsync import sliced_pull
 
         self.model = model
@@ -51,7 +54,7 @@ class HairHostState:
         self.ep_src = np.arange(self.endpoints.shape[0], dtype=np.int64)
         self.seg_src = np.arange(self.pairs.shape[0], dtype=np.int64)
         ns = model.num_segments
-        self.stats = sliced_pull({
+        self.stats = stats if stats is not None else sliced_pull({
             "max_radii2d": (model.stats.max_radii2d, ns),
             "xyz_grad_accum": (model.stats.xyz_grad_accum, ns),
             "denom": (model.stats.denom, ns),
@@ -200,12 +203,15 @@ class HairHostState:
 
     # -- write back -------------------------------------------------------
 
-    def install(self):
+    def install(self, carry_values: bool = False):
+        """Write the mirror back. carry_values: surviving rows keep their
+        current device values (HairModel.install carry_param_values); only
+        new rows take the mirror's."""
         m = self.model
         step = int(m.opt_state.step) if m.opt_state is not None else 0
         m.install(self.endpoints, self.pairs, self.seg,
                   moment_maps=(self.ep_src, self.seg_src, frozenset()),
-                  step=step)
+                  step=step, carry_param_values=carry_values)
         m.strand_root_endpoint_idx = self.strand_root_idx
         # install() zeroed the stats; restore the surviving values
         cap_s = m.graph.endpoint_pairs.shape[0]
@@ -491,6 +497,69 @@ def hair_reset_opacity(model):
             nu=model.opt_state.nu._replace(
                 opacity=torch.zeros_like(model.opt_state.nu.opacity)),
         )
+
+
+# --------------------------------------------------------------------------
+# async topology events (opt-in via --async_topology, topo/async_events.py)
+# --------------------------------------------------------------------------
+
+
+class TopologyUpdate(NamedTuple):
+    """A computed topology event waiting to be installed."""
+
+    st: HairHostState
+    info: Dict
+    strands_info: object  # StrandsInfo of the topology after the update
+
+
+def compute_topology_update(model, *, arrays, stats, densify, merge,
+                            extent=None, max_screen_size=None,
+                            merge_dist_th=None, merge_angle_th=None):
+    """A densify and/or merge event computed on a host snapshot, without
+    installing it: the strategy sequence of hair_densification and
+    hair_merging. apply_topology_update installs it later; surviving rows
+    then take their live device values (the snapshot decides the topology
+    and the new rows' values). Safe on a worker thread: it reads the
+    snapshot and the model's constant fields only."""
+    from hairgs_tpu_torch.topo.merge import compute_endpoint_pair_to_merge
+    from hairgs_tpu_torch.topo.strands import compute_strands_info
+
+    st = HairHostState(model, arrays=arrays, stats=stats)
+    info = {}
+    if densify:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            grads = st.stats["xyz_grad_accum"] / st.stats["denom"]
+        grads = np.nan_to_num(grads, nan=0.0, posinf=0.0)
+        _clone_strategy(st, grads, extent, model.training_args, info)
+        _split_strategy(st, grads, extent, model.training_args, info)
+        _merge_collapsed_segments_v2(st, info)
+        _prune_strategy(st, extent, max_screen_size, model.training_args, info,
+                        avoid_connected=True)
+    if merge:
+        mid_info = compute_strands_info(model, arrays=st.as_arrays(), store=False)
+        pairs = compute_endpoint_pair_to_merge(
+            model, st=st, info=mid_info, dist_th=merge_dist_th,
+            angle_th=merge_angle_th)
+        info["merge"] = int(pairs.shape[0])
+        st.merge_endpoint_pairs(pairs)
+    strands_info = compute_strands_info(model, arrays=st.as_arrays(), store=False)
+    return TopologyUpdate(st=st, info=info, strands_info=strands_info)
+
+
+def apply_topology_update(model, update: TopologyUpdate, training_info=None):
+    """Install a TopologyUpdate between train steps. Surviving rows keep
+    their current device parameters and Adam moments (gather maps); new
+    rows take the snapshot's values. The statistics take the update's
+    values (any cat resets them in the reference, so the steps run during
+    the flight only shorten the next accumulation window)."""
+    _sync(model)  # time the install alone: the queued steps finish first
+    t0 = time.perf_counter()
+    update.st.install(carry_values=True)
+    model.strands_info = update.strands_info
+    _sync(model)
+    update.info["t_apply"] = round(time.perf_counter() - t0, 3)
+    if training_info is not None:
+        training_info.densification_info.update(update.info)
 
 
 def clean_hair_gaussians(model, avoid_connected: bool = True):

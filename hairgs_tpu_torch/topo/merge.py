@@ -20,16 +20,23 @@ import numpy as np
 from scipy.spatial import cKDTree
 
 
-def compute_endpoint_pair_to_merge(model, st=None, native: bool = True) -> np.ndarray:
+def compute_endpoint_pair_to_merge(model, st=None, native: bool = True,
+                                   info=None, dist_th=None,
+                                   angle_th=None) -> np.ndarray:
     """Candidate pairs at the model's current thresholds, in merge order;
-    `st` is a host mirror to search instead of a fresh pull."""
+    `st` is a host mirror to search instead of a fresh pull. `info` and the
+    thresholds let the async topology worker search a snapshot with its
+    launch-time strands info and thresholds instead of the live model's."""
     from hairgs_tpu_torch.topo.graph_ops import HairHostState
 
     cfg = model.training_args
-    dir_th = np.cos(np.deg2rad(model.merge_angle_th))
+    dist_th = model.merge_dist_th if dist_th is None else dist_th
+    angle_th = model.merge_angle_th if angle_th is None else angle_th
+    dir_th = np.cos(np.deg2rad(angle_th))
     if st is None:
         st = HairHostState(model)
-    info = model.strands_info
+    if info is None:
+        info = model.strands_info
 
     # strand endpoints (appear once), restricted to foreground segments
     ids, counts = np.unique(st.pairs, return_counts=True)
@@ -55,7 +62,7 @@ def compute_endpoint_pair_to_merge(model, st=None, native: bool = True) -> np.nd
         )
 
         sel_p1, sel_p2, dists = merge_candidates(
-            pts, d, float(model.merge_dist_th), float(dir_th),
+            pts, d, float(dist_th), float(dir_th),
             bool(cfg.bidirectional_merge),
             strand_endpoint_id, strand_comp[strand_endpoint_id],
         )
@@ -67,7 +74,7 @@ def compute_endpoint_pair_to_merge(model, st=None, native: bool = True) -> np.nd
         return pairs[greedy_complementary_filter(pairs, strand_comp)]
 
     tree = cKDTree(pts)
-    neighbor_lists = tree.query_ball_point(pts, r=model.merge_dist_th, workers=-1,
+    neighbor_lists = tree.query_ball_point(pts, r=dist_th, workers=-1,
                                            return_sorted=True)
 
     sel_p1, sel_p2, dists = [], [], []
@@ -119,13 +126,15 @@ def _remove_complementary_rows(pairs: np.ndarray, comp_map: np.ndarray) -> np.nd
 
 
 def stage2_merge_loop(model, max_iterations: int, callback=None,
-                      native: bool = True) -> int:
+                      native: bool = True, viz_callback=None) -> int:
     """Stage-II merging driver (merge.py:114-166): repeatedly find + merge
     candidate pairs until none remain. The merge thresholds stay at their
     init values (the reference never calls update_learning_rate here).
 
     callback(i, n_merged, times) gets the iteration's wall seconds:
-    `candidates` (the search alone) and `total`."""
+    `candidates` (the search alone) and `total`. viz_callback(i, pairs)
+    fires before the merge is applied (the pairs index the pre-merge
+    endpoints): the hook for the merge-progress plots (merge.py:118-158)."""
     from hairgs_tpu_torch.topo.graph_ops import HairHostState
     from hairgs_tpu_torch.topo.strands import compute_strands_info
 
@@ -138,6 +147,8 @@ def stage2_merge_loop(model, max_iterations: int, callback=None,
         t_cand = time.perf_counter() - t1
         if pairs.shape[0] == 0:
             break
+        if viz_callback is not None:
+            viz_callback(i, pairs)
         st.merge_endpoint_pairs(pairs)
         st.install()
         # the mirror holds what install() wrote: no second pull

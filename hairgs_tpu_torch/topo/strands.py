@@ -80,11 +80,13 @@ def _walk_strands_np(endpoint_pairs: np.ndarray, num_endpoints: int):
     return strands, strand_rows, id_to_strand, complementary
 
 
-def compute_strands_info(model, arrays=None, native: bool = True) -> StrandsInfo:
+def compute_strands_info(model, arrays=None, native: bool = True,
+                         store: bool = True) -> StrandsInfo:
     """Build StrandsInfo of the foreground segments of a HairModel, store
     it on the model and return it. `arrays` lets callers reuse an existing
     host mirror (topology events); otherwise only the planes the walk needs
-    are pulled."""
+    are pulled. `store=False` leaves the model alone (the async topology
+    worker walks a snapshot while the model trains)."""
     if model.ref_strand_root is None or model.ref_strand_root.shape[0] == 0:
         raise ValueError("ref_strand_root is not set")
     if arrays is None:
@@ -115,7 +117,8 @@ def compute_strands_info(model, arrays=None, native: bool = True) -> StrandsInfo
         id_to_strand_id=id_to_strand,
         strand_endpoint_id_to_complementary=complementary,
     )
-    model.strands_info = info
+    if store:
+        model.strands_info = info
     return info
 
 

@@ -280,16 +280,18 @@ def test_paged_run_densifies_and_resumes(scene_dir, tmp_path, monkeypatch):
 
 
 def test_unported_branches_raise(scene_dir, tmp_path, monkeypatch):
-    """The branches still to port raise naming their ROADMAP item; a
-    5-element PLY (Stage II's output), which raised before the hair model
-    was ported, now loads as a HairModel."""
+    """The branch still to port (`--gauss_shard > 1`) raises naming its
+    ROADMAP item (`--device_eval true`, which raised too, runs since
+    evaluation/device_metrics.py was ported:
+    tests/test_torch_port_device_metrics.py); a 5-element PLY (Stage II's
+    output), which raised before the hair model was ported, now loads as a
+    HairModel."""
     from hairgs_tpu_torch.models.hair import HairModel
     from hairgs_tpu_torch.scene import Scene
 
-    for flags, item in ((("--gauss_shard", "2"), "item 9"),
-                        (("--device_eval", "true"), "item 7")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-            _run("torch", _argv(scene_dir, str(tmp_path / item), 2, flags), monkeypatch)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        _run("torch", _argv(scene_dir, str(tmp_path / "item 9"), 2,
+                            ("--gauss_shard", "2")), monkeypatch)
     hair = HairModel(sh_degree=0, capacity_round=64, device="cpu")
     ns = 2
     hair.install(np.array([[0, 0, 0.1], [0, 0.01, 0.1], [0, 0.02, 0.1]], np.float32),

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of hairgs_tpu_torch (the
 drivers, the hair model, the topology and the native library's wrapper
 too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
-nothing of JAX or of the JAX package, and leaves TF32
-matmuls switched off."""
+nothing of JAX or of the JAX package, and leaves TF32 switched off for
+matmuls and for cuDNN's convolutions."""
 
 import json
 import os
@@ -26,6 +26,7 @@ print(json.dumps({
                       if m.startswith("jax")
                       or m == "hairgs_tpu" or m.startswith("hairgs_tpu.")),
     "tf32": torch.backends.cuda.matmul.allow_tf32,
+    "cudnn_tf32": torch.backends.cudnn.allow_tf32,
 }))
 """
 
@@ -38,8 +39,13 @@ def test_port_imports_nothing_of_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("drivers.train", "drivers.merge", "drivers.eval", "scene",
                  "models.hair", "topo.strands", "topo.graph_ops", "topo.merge",
-                 "native", "core.hostsync", "losses.strand"):
+                 "native", "core.hostsync", "losses.strand",
+                 "evaluation.device_metrics", "topo.async_events", "drivers.render",
+                 "drivers.parse_usc_hairsalon", "data.vision", "data.usc",
+                 "data.head", "data.cy", "data.flame", "visualization",
+                 "network_gui"):
         assert f"hairgs_tpu_torch.{name}" in report["modules"], name
-    assert len(report["modules"]) >= 51
+    assert len(report["modules"]) >= 66
     assert report["foreign"] == []
     assert report["tf32"] is False
+    assert report["cudnn_tf32"] is False

@@ -182,11 +182,26 @@ def test_strand_gaussians_and_lighting_match_jax():
 
 
 def test_gabor_orientation_is_not_ported(tmp_path):
-    from hairgs_tpu_torch.data.synthetic import generate_dataset
+    """orientation_source="gabor", which raised before data/vision.py was
+    ported, now writes the Gabor bank's maps of each saved RGB view (held
+    to JAX's in tests/test_torch_port_data.py)."""
+    from PIL import Image
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        generate_dataset(str(tmp_path), _hair(), orientation_source="gabor",
-                         device="cpu")
+    from hairgs_tpu_torch.data.synthetic import generate_dataset
+    from hairgs_tpu_torch.data.vision import estimate_orientation_field
+
+    generate_dataset(str(tmp_path), _hair(), **dict(SCENE, num_cameras=2),
+                     orientation_source="gabor", device="cpu")
+    for cam_id in (1, 2):
+        rgb = np.array(Image.open(tmp_path / "images" / f"image_{cam_id}.png"))
+        theta, conf = (t.numpy() for t in estimate_orientation_field(
+            torch.from_numpy(rgb)))
+        saved = np.asarray(Image.open(
+            tmp_path / "orientations" / f"image_{cam_id}_orientation.png"))
+        np.testing.assert_array_equal(saved, (theta * 255 / np.pi).astype(np.uint8))
+        saved = np.asarray(Image.open(
+            tmp_path / "orientations" / f"image_{cam_id}_confidence.png"))
+        np.testing.assert_array_equal(saved, (conf * 255).astype(np.uint8))
 
 
 def test_eval_data_loaders_match_jax(tmp_path):

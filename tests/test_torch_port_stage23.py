@@ -9,7 +9,8 @@ the float planes within 1e-5; in a 15-iteration Stage-III run on the XLA
 path (densify and merge every 5, one growth event) the loss at every sync
 within 1e-4 relative up to the first topology event, the event info and
 the segment and strand counts equal at every event, the final F1 within
-1e-3; the eval driver's metric table equal to eval.py's.
+1e-3; the eval driver's metric table equal to eval.py's; the same for a
+12-iteration run with the topology events on the worker thread.
 """
 
 import os
@@ -248,9 +249,43 @@ def test_eval_driver_matches_jax(merged, capsys, monkeypatch):
 
 
 def test_async_topology_on_a_hair_model_raises(merged, tmp_path, monkeypatch):
+    """`--async_topology` on a hair model, which raised before
+    topo/async_events.py was ported, now trains: a 12-iteration Stage-III
+    run of each package's driver with the densify and merge events on the
+    worker (launched at 5 and 10, growth at 10). Each launch waits for its
+    thread here, so the next step's poll installs it in both packages and
+    the runs are comparable; the loss within 1e-4 relative up to the first
+    install, the event info and the sizes equal at every iteration, the
+    final F1 within 1e-3."""
+    from hairgs_tpu.topo import async_events as jae
+    from hairgs_tpu_torch.topo import async_events as tae
+
+    for module in (jae, tae):
+        launch = module.TopologyWorker.launch
+
+        def launch_and_join(self, *a, _launch=launch, **k):
+            _launch(self, *a, **k)
+            self._thread.join()
+
+        monkeypatch.setattr(module.TopologyWorker, "launch", launch_and_join)
     source, dirs, _ = merged
-    path = str(tmp_path / "async")
-    shutil.copytree(dirs["torch"], path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _train("torch", _stage_argv(source, path, 2, ("--async_topology",)),
-               monkeypatch)
+    extra = ("--async_topology", "--merge_interval", "5", "--growth_interval",
+             "10", "--growth_max_events", "1", "--num_points_strand", "2",
+             "--densify_grad_threshold", "1e-3", "--capacity_round", "2048")
+    runs = {}
+    for package in ("jax", "torch"):
+        path = str(tmp_path / package)
+        shutil.copytree(dirs[package], path)
+        runs[package] = _train(package, _stage_argv(source, path, 12, extra), monkeypatch)
+    (rj, _, _), (rt, _, mt) = runs["jax"], runs["torch"]
+    assert [r[0] for r in rt.rows] == [r[0] for r in rj.rows]
+    start = rj.rows[0][0]
+    installs = [r[0] - start for r in rj.rows if "merge" in r[2]]
+    assert installs == [6, 11]
+    for (it, lj, dj, sj), (_, lt, dt, s_t) in zip(rj.rows, rt.rows):
+        assert dt == dj and s_t == sj, it
+        if lj is not None and it - start <= installs[0]:
+            assert abs(lt - lj) <= 1e-4 * abs(lj), (it, lt, lj)
+    f1 = next(k for k in rj.metrics if k.startswith("f1"))
+    np.testing.assert_allclose(rt.metrics[f1], rj.metrics[f1], rtol=0, atol=1e-3)
+    assert all(torch.isfinite(p).all() for p in mt.params)
