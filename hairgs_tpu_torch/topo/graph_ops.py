@@ -447,8 +447,14 @@ def hair_growing(model, training_info=None, growth_length: float = 0.002):
     new_seg = {k: [] for k in SEG_KEYS}
     counter = 0
     total_eps = st.endpoints.shape[0]
+    # the strands info walks the foreground segments as they were at the
+    # last topology event: a tip there may go on into a background segment.
+    # Growing from it would give its endpoint a third segment, and the walk
+    # fails once that segment turns foreground, so only endpoints of one
+    # segment grow
+    degree = np.bincount(st.pairs.ravel(), minlength=total_eps)
     for seq, rows in zip(info.list_strands, info.list_strands_segments_id):
-        if seq.shape[0] >= max_len:
+        if seq.shape[0] >= max_len or degree[seq[-1, 1]] != 1:
             continue
         tip = st.endpoints[seq[-1, 1]]
         k = min(seq.shape[0], navg)

@@ -326,13 +326,68 @@ def test_random_scene_events_match_jax(seed):
     assert_same(jm, tm)
     assert hair_merging(tm, arrays=ta) == jmerge(jm, arrays=ja)
     assert_same(jm, tm)
+    # the port grows only from endpoints of one segment; JAX's growth also
+    # branches from foreground tips that go on into a background segment.
+    # Held to JAX with those strands left out of JAX's strands info
+    jm.strands_info, branching = _without_branching_tips(jm)
+    assert branching == (5, 0, 1)[seed]
     assert hair_growing(tm) == jgrow(jm) > 0
+    assert _max_degree(tm) <= 2
     assert_same(jm, tm)
     n_strands = len(tm.strands_info.list_strands)
     iters = stage2_merge_loop(tm, 50)
     assert iters == jloop(jm, max_iterations=50)
     assert len(tm.strands_info.list_strands) <= n_strands
     assert_same(jm, tm)
+
+
+def _max_degree(m):
+    pairs = m.host_arrays(keys=("endpoint_pairs",))["endpoint_pairs"]
+    return int(np.bincount(pairs.astype(np.int64).ravel()).max())
+
+
+def _without_branching_tips(jm):
+    """JAX's strands info without the strands whose tip is an endpoint of
+    more than one segment of the whole graph, and how many were left out."""
+    pairs = np.asarray(jm.host_arrays()["endpoint_pairs"], np.int64)
+    degree = np.bincount(pairs.ravel(), minlength=jm.num_endpoints)
+    info = jm.strands_info
+    keep = [degree[s[-1, 1]] == 1 for s in info.list_strands]
+    return info._replace(
+        list_strands=[s for s, k in zip(info.list_strands, keep) if k],
+        list_strands_segments_id=[r for r, k in zip(
+            info.list_strands_segments_id, keep) if k]), keep.count(False)
+
+
+def test_growth_never_branches_a_strand():
+    """A foreground strand 0-1-2, rooted at 0, goes on into a background
+    segment 2-3. Its tip 2 does not grow (JAX's growth gives endpoint 2 a
+    third segment), and the walk still succeeds once 2-3 turns foreground,
+    where it raised before; then the true tip 3 grows."""
+    from hairgs_tpu.topo.graph_ops import hair_growing as jgrow
+    from hairgs_tpu_torch.topo.graph_ops import hair_growing
+    from hairgs_tpu_torch.topo.strands import compute_strands_info
+
+    eps = np.asarray([[0, 0, 0.01], [0.004, 0, 0.01], [0.008, 0, 0.01],
+                      [0.012, 0, 0.01]], np.float32)
+    pairs = np.asarray([[0, 1], [1, 2], [2, 3]], np.int64)
+    seg = dict(
+        features_dc=np.zeros((3, 1, 3), np.float32),
+        features_rest=np.zeros((3, 0, 3), np.float32),
+        opacity=np.full((3, 1), inv_sig(0.5), np.float32),
+        mask=np.asarray([[inv_sig(0.9)], [inv_sig(0.9)], [inv_sig(0.1)]],
+                        np.float32),
+        width=np.full((3, 1), np.log(1e-4), np.float32),
+    )
+    jm, tm = make_pair(eps, pairs, seg=seg, ref_root=[[0.0, 0.0, 0.0]])
+    assert [s.tolist() for s in tm.strands_info.list_strands] == [[[0, 1], [1, 2]]]
+    assert jgrow(jm) == 1 and _max_degree(jm) == 3
+    assert hair_growing(tm) == 0 and _max_degree(tm) == 2
+    # the background segment turns foreground: the walk finds one strand
+    tm.params = tm.params._replace(mask=torch.full_like(tm.params.mask, inv_sig(0.9)))
+    info = compute_strands_info(tm)
+    assert [s.shape[0] for s in info.list_strands] == [3]
+    assert hair_growing(tm) == 1 and _max_degree(tm) == 2
 
 
 def test_conversion_matches_jax():
