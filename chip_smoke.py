@@ -44,7 +44,17 @@ type 0 on the Gaussian one; one view of the C = 7 and of the C = 3 forward
 against the plain version), `generate_dataset(orientation_source="gabor")`
 at 16 x 1000^2 (a crop on the card against the CPU), the USC parse driver
 on a sample written by scripts/synthesize_usc_sample.py, and the 2D grid
-(`visualization.py`).
+(`visualization.py`); 14 the parallel paths of `parallel/` with ranks that
+share the one card over gloo (correctness and collective counts, no
+scaling): the slab render at k = 2 and 4 against one render of the
+depth-permuted rows; the view-parallel Stage-I step over 2 ranks and the
+slab step over 1 x 2 and 2 x 2 ranks against one process; the view step
+through NCCL at world size 1; the train driver under torchrun
+(`--view_batch 4` and `--gauss_shard 2`, 200 Stage-I iterations, and 100
+Stage-III iterations with `--view_batch 2`) against one process, its ranks
+bit-equal after every topology event; a 2-rank sharded checkpoint; and
+`drivers/convert_output.py` on phase 12's final PLY. Each rank is a child
+process (`--rank-case`, or torchrun's) with its own timeout.
 
     python3 chip_smoke.py
 
@@ -1702,9 +1712,715 @@ def grid_check(hair_scene):
     return dict(images=len(images), seconds=t_grid)
 
 
+# phase 14: the parallel paths (parallel/) on the one card. Ranks share the
+# card over gloo (NCCL refuses two ranks on one device), so this checks
+# correctness and counts collectives; it measures no scaling
+P14_TIMEOUT = 300  # seconds for each child process: a hung collective fails
+P14_RTOL, P14_ATOL = 1e-3, 1e-5  # step tolerances of tests/test_parallel.py
+P14_LOSS_REL = 1e-4
+# Adam's first moments (0.1 x the merged gradient): max abs err within
+# BWD_GATE x max |ref|, and the step's relative tolerance in L2. The
+# kernels' 1e-5 L2 gate does not hold between the slab and the one-table
+# steps: the L1 loss's gradient flips sign at a value where the image's
+# rounding (the fold's, below 1e-6) crosses the target, and each flip moves
+# the colour gradient of every Gaussian under that pixel by its weight x
+# 2 / (values in the batch), so a few flips give ~1e-4 in L2 (step 1 counts
+# them). A fault of the gradients' scale moves the L2 error by 0.5 or more
+P14_MU_REL = P14_RTOL
+DRIVER_LOSS_REL = 0.02  # the driver runs' loss at their last sync
+P14_SLABS = (2, 4)
+# tiles per Gaussian of phase 14's tables: at the bench's 16, view 1 drops 5
+# pairs (overflow_pairs) in every render, and a comparison is defined only
+# where no render drops any
+P14_MAX_TILES = 32
+P14_STAGE1 = ["--iterations", "200", "--position_lr_max_steps", "200",
+              "--densify_from_iter", "50", "--densification_interval", "100",
+              "--densify_until_iter", "150", "--save_frequency", "200",
+              "--eval_frequency", "200", "--logger", "none", "--view_batch", "4"]
+P14_STAGE3 = ["--iterations", "100", "--position_lr_max_steps", "100",
+              "--save_frequency", "100", "--eval_frequency", "100",
+              "--view_batch", "2"]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_concurrently(cmds, env, tmp, timeout=P14_TIMEOUT):
+    """Run the commands {name: argv} at once, each in its own session with
+    its output in a file; kill a session still running at the timeout.
+    Returns {name: (returncode, output)}."""
+    import os
+    import signal
+
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(f"{tmp}/{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           start_new_session=True)
+    deadline = time.perf_counter() + timeout
+    out = {}
+    for name, p in procs.items():
+        try:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        with open(f"{tmp}/{name}.log") as f:
+            out[name] = (p.returncode, f.read())
+    return out
+
+
+def spawn_ranks(world, case, args, tmp, backend=None):
+    """`world` children of this script, one rank each of a process group on
+    the card (torchrun's environment, one intra-op thread, P14_TIMEOUT
+    each); fail() when any fails. Returns the ranks' results."""
+    import os
+
+    out = tempfile.mkdtemp(prefix=f"{case}_", dir=tmp)
+    with open(f"{out}/args.json", "w") as f:
+        json.dump(dict(args, out=out, backend=backend), f)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--rank-case", case, f"{out}/args.json"],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(world)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=P14_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0] + f"\n[killed after {P14_TIMEOUT} s]")
+    for q in procs:
+        q.wait()
+    if any(p.returncode for p in procs):
+        for r, o in enumerate(outs):
+            print(f"  --- rank {r} of {case} (exit {procs[r].returncode}):\n{o[-3000:]}")
+        fail(f"phase 14: a rank of {case} failed")
+    return [torch.load(f"{out}/rank{r}.pt") for r in range(world)]
+
+
+def p14_save_state(scene, cfg, path):
+    """The bench scene's initial state, cameras and tables for the ranks."""
+    torch.save(dict(
+        params=scene.params._asdict(), stats=scene.stats._asdict(),
+        mu=scene.opt_state.mu._asdict(), nu=scene.opt_state.nu._asdict(),
+        step=scene.opt_state.step, active=scene.active,
+        cams=[c._asdict() for c in scene.cams], opt=dataclasses.asdict(scene.opt_cfg),
+        raster=dataclasses.asdict(cfg), width=scene.width, height=scene.height), path)
+
+
+def p14_load_state(path):
+    from hairgs_tpu_torch.config import OptimizationConfig
+    from hairgs_tpu_torch.core.camera import Camera, stack_cameras
+    from hairgs_tpu_torch.models.gaussian import GaussianParams, GaussianStats
+    from hairgs_tpu_torch.optim import AdamState
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+
+    st = torch.load(path, map_location="cuda")
+    state = (GaussianParams(**st["params"]), GaussianStats(**st["stats"]),
+             AdamState(GaussianParams(**st["mu"]), GaussianParams(**st["nu"]), st["step"]))
+    batch = stack_cameras([Camera(**c) for c in st["cams"]])
+    return (state, st["active"], batch, OptimizationConfig(**st["opt"]),
+            RasterConfig(**st["raster"]), st["width"], st["height"])
+
+
+def param_checksum(params):
+    """The float bits summed as integers: equal exactly when every bit is,
+    but for changes that cancel."""
+    return int(torch.stack([p.contiguous().view(torch.int32).to(torch.int64).sum()
+                            for p in params]).sum())
+
+
+def rank_step(a):
+    """One rank of phase 14 steps 2-4: the view-parallel (gauss 1) or slab
+    Stage-I step from the bench scene's initial state on this rank's views;
+    the first step's state (with Adam's first moments, 0.1 x the merged
+    gradient) and counts, then 2 + 10 steps timed (the
+    collectives counted per step) and 5 more with the collectives timed."""
+    from hairgs_tpu_torch.parallel.mesh import (
+        make_mesh,
+        make_shardmap_gaussian_step,
+        shard_view_batch,
+    )
+    from hairgs_tpu_torch.parallel.slab import make_2d_mesh, make_slab_train_step
+    from hairgs_tpu_torch.render import composite_pairs as cp
+
+    (params, stats, opt_state), active, batch, opt, cfg, w, h = p14_load_state(a["state"])
+    size = dict(width=w, height=h, active_sh_degree=0)
+    if a["gauss"] > 1:
+        mesh = make_2d_mesh(a["data"], a["gauss"], device="cuda")
+        step = make_slab_train_step("gaussian", opt, cfg, mesh=mesh, **size)
+    else:
+        mesh = make_mesh(device="cuda")
+        step = make_shardmap_gaussian_step(opt, cfg, mesh=mesh, **size)
+    local = shard_view_batch(batch, mesh)
+    cp.reset_launches()
+    mesh.reset_counts()
+    p, s, o, m, _ = step(params, stats, opt_state, active, local, 1)
+    torch.cuda.synchronize()
+    res = dict(params={k: v.cpu() for k, v in p._asdict().items()},
+               stats={k: v.cpu() for k, v in s._asdict().items()},
+               mu={k: v.cpu() for k, v in o.mu._asdict().items()},
+               metrics={k: float(v) for k, v in m.items()}, checksum=param_checksum(p),
+               launches=dict(cp.launches), counts=dict(mesh.counts), coords=mesh.coords,
+               views=int(local.world_view.shape[0]))
+
+    def steps(n, first):
+        nonlocal p, s, o
+        for i in range(n):
+            p, s, o, _, _ = step(p, s, o, active, local, first + i)
+
+    steps(2, 2)
+    torch.cuda.synchronize()
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    steps(10, 4)
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    res["per_step"] = {op: (c / 10, b / 10) for op, (c, b) in mesh.counts.items()}
+    mesh.timing = True
+    mesh.reset_counts()
+    t0 = time.perf_counter()
+    steps(5, 14)
+    res["timed_step_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    res["collective_ms"] = mesh.ms / 5
+    return res
+
+
+def rank_checkpoint(a):
+    """Phase 14 step 6: each rank saves half of the bench model's arenas
+    (parameters and Adam moments) and the replicated Adam step counter,
+    then reloads into a fresh template; returns whether it is bit-equal."""
+    import torch.distributed as dist
+
+    from hairgs_tpu_torch.parallel.multihost import (
+        RowShard,
+        load_sharded_state,
+        save_sharded_state,
+    )
+
+    (params, _, opt_state), *_ = p14_load_state(a["state"])
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n = params.xyz.shape[0]
+    half = n // world
+    lo = rank * half
+
+    def tree(fill):
+        return {group: {k: RowShard(tuple(v.shape), lo, fill(v[lo:lo + half]))
+                        for k, v in t._asdict().items()}
+                for group, t in (("params", params), ("mu", opt_state.mu),
+                                 ("nu", opt_state.nu))} | {
+            "adam_step": fill(opt_state.step.reshape(1))}
+
+    state = tree(lambda t: t)
+    d = a["dir"]
+    save_sharded_state(d, state, step=7)
+    dist.barrier()
+    loaded, step = load_sharded_state(d, tree(torch.zeros_like))
+    equal = all(torch.equal(x.block, y.block)
+                for g in ("params", "mu", "nu")
+                for x, y in zip(state[g].values(), loaded[g].values()))
+    equal = equal and torch.equal(state["adam_step"], loaded["adam_step"])
+    import os
+
+    return dict(equal=equal, step=step, files=sorted(os.listdir(d)),
+                bytes=os.path.getsize(f"{d}/shard_{rank}.npz"))
+
+
+RANK_CASES = {"step": rank_step, "checkpoint": rank_checkpoint}
+
+
+def rank_main(case, args_path):
+    """A child of phase 14: one rank, run by spawn_ranks."""
+    import torch.distributed as dist
+
+    from hairgs_tpu_torch.parallel.mesh import init_distributed
+
+    torch.set_num_threads(1)
+    with open(args_path) as f:
+        a = json.load(f)
+    init_distributed("cuda", a["backend"])
+    result = RANK_CASES[case](a)
+    torch.save(result, f"{a['out']}/rank{dist.get_rank()}.pt")
+    dist.destroy_process_group()
+
+
+def depth_tie_tiles(cam, inputs, active, cfg, width, height):
+    """Tiles of one view holding two pairs with equal [tile | quantized
+    depth] keys: where the unsharded order falls back to the row index."""
+    from hairgs_tpu_torch.render.binning import _expand_pairs, _quantize_depth
+    from hairgs_tpu_torch.render.preprocess import preprocess
+
+    ts = cfg.tile_size
+    grid_w, grid_h = (width + ts - 1) // ts, (height + ts - 1) // ts
+    num_tiles = grid_w * grid_h
+    prep = preprocess(inputs["means3d"], inputs["scales"], inputs["rotations"], cam,
+                      width, height, ts, active=active, opacity=inputs["opacity"],
+                      alpha_min=cfg.alpha_min)
+    opa = torch.where(prep.valid, inputs["opacity"], torch.zeros_like(inputs["opacity"]))
+    q_cut = torch.log(torch.clamp(opa, min=1e-12) / cfg.alpha_min)
+    dq, levels = _quantize_depth(prep.depth, num_tiles)
+    tile, _ = _expand_pairs(prep.rect, prep.valid, grid_w, grid_h,
+                            cfg.max_tiles_per_gaussian, xy=prep.xy, conic=prep.conic,
+                            q_cut=q_cut, tile_size=ts)
+    key = (tile.long() * (levels + 1) + dq[:, None].long()).reshape(-1)
+    key = torch.sort(key[tile.reshape(-1) < num_tiles]).values
+    dup = key[1:] == key[:-1]
+    return int(torch.unique(torch.div(key[1:][dup], levels + 1,
+                                      rounding_mode="floor")).numel())
+
+
+def slab_render_check(scene, cfg):
+    """Phase 14, step 1: render_gauss_sharded at k = 2 and 4 on every bench
+    view against one render of the depth-permuted rows (the same
+    compositing order): image and T within FWD_GATE, radii equal, no
+    overflow; the gradients of view 0 through the fold within the kernel
+    gates. The difference from the original-order render and the tiles
+    with quantized-depth ties are printed, not gated."""
+    from hairgs_tpu_torch.models.gaussian import GaussianParams, gaussian_render_inputs
+    from hairgs_tpu_torch.parallel.slab import _depth_slab_permutation, render_gauss_sharded
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.render.renderer import render
+
+    size = dict(width=scene.width, height=scene.height, config=cfg)
+    over = ("overflow_pairs", "overflow_tiles", "overflow_capacity")
+    worst = {k: [0.0, 0.0, 0.0] for k in P14_SLABS}  # image, T, original order
+    low_t, ties = [], []
+    flips = {k: [] for k in P14_SLABS}  # per view: values whose L1 sign flips
+    cp.reset_launches()
+    with torch.no_grad():
+        for v, cam in enumerate(scene.cams):
+            inputs = gaussian_render_inputs(scene.params, cam.cam_center, 0)
+            perm, _ = _depth_slab_permutation(inputs["means3d"], scene.active,
+                                              cam.world_view)
+            ref = render(cam, **{k: x[perm] for k, x in inputs.items()},
+                         active=scene.active[perm], **size)
+            orig = render(cam, **inputs, active=scene.active, **size)
+            low_t.append(int((ref["final_T"] < 0.01).sum()))
+            ties.append(depth_tie_tiles(cam, inputs, scene.active, cfg,
+                                        scene.width, scene.height))
+            for k in P14_SLABS:
+                got = render_gauss_sharded(cam, **inputs, active=scene.active,
+                                           num_slabs=k, **size)
+                if any(int(r[key]) for r in (got, ref) for key in over):
+                    fail(f"phase 14 step 1: an overflow in view {v}: slabs (k={k}) "
+                         f"{ {key: int(got[key]) for key in over} }, one table "
+                         f"{ {key: int(ref[key]) for key in over} }")
+                if not torch.equal(got["radii"], orig["radii"]):
+                    fail(f"phase 14 step 1: radii differ at k={k}")
+                errs = ((got["render"] - ref["render"]).abs().max().item(),
+                        (got["final_T"] - ref["final_T"]).abs().max().item(),
+                        (got["render"] - orig["render"]).abs().max().item())
+                worst[k] = [max(a, b) for a, b in zip(worst[k], errs)]
+                flips[k].append(int(((got["render"][..., :3] - cam.image).sign()
+                                     != (ref["render"][..., :3] - cam.image).sign()).sum()))
+    fwd_launches = dict(cp.launches)
+    # gradients through the fold, view 0, against the permuted render
+    cam = scene.cams[0]
+    target = torch.rand((scene.height, scene.width, 7), device=cam.world_view.device,
+                        generator=torch.Generator(cam.world_view.device).manual_seed(5))
+
+    def grads(fn):
+        p = GaussianParams(*[t.detach().requires_grad_(True) for t in scene.params])
+        img = fn(gaussian_render_inputs(p, cam.cam_center, 0))["render"]
+        torch.mean((img - target) ** 2).backward()
+        return [t.grad for t in p]
+
+    def permuted(inputs):
+        perm, _ = _depth_slab_permutation(inputs["means3d"], scene.active, cam.world_view)
+        return render(cam, **{k: x[perm] for k, x in inputs.items()},
+                      active=scene.active[perm], **size)
+
+    g_ref = grads(permuted)
+    cp.reset_launches()
+    grad_err = {}
+    for k in P14_SLABS:
+        g_k = grads(lambda inputs: render_gauss_sharded(
+            cam, **inputs, active=scene.active, num_slabs=k, **size))
+        errs = [grad_gate(a, b) for a, b in zip(g_k, g_ref) if b.numel()]
+        grad_err[k] = (max(e[1] for e in errs), max(e[2] for e in errs))  # abs, L2
+        if not all(e[0] for e in errs):
+            fail(f"phase 14 step 1: gradients at k={k} outside the kernel gates {errs}")
+    bwd_launches = dict(cp.launches)
+    for k in P14_SLABS:
+        print(f"  slab render k={k} (4 views): image max abs err {worst[k][0]:.3e}, "
+              f"T {worst[k][1]:.3e} against the permuted render; against the "
+              f"original order {worst[k][2]:.3e} (not gated); view-0 gradients "
+              f"max abs err {grad_err[k][0]:.3e}, relative L2 {grad_err[k][1]:.3e}")
+    print(f"  tiles with a quantized-depth tie per view {ties} of "
+          f"{((scene.width + 15) // 16) * ((scene.height + 15) // 16)}; pixels with T "
+          f"< 0.01 (where a slab's stop test can differ) {low_t}; values whose L1 "
+          f"sign against the view's image flips, per view {flips}; launches: forward "
+          f"pass {fwd_launches}, gradients {bwd_launches}")
+    if any(max(w[:2]) > FWD_GATE for w in worst.values()):
+        fail(f"phase 14 step 1: slab render outside {FWD_GATE}: {worst}")
+    if fwd_launches["composite_fwd"] == 0 or bwd_launches["composite_bwd"] == 0:
+        fail(f"phase 14 step 1: the kernels did not run: {fwd_launches} {bwd_launches}")
+    return dict(image_err={k: w[0] for k, w in worst.items()},
+                t_err={k: w[1] for k, w in worst.items()},
+                original_order_err={k: w[2] for k, w in worst.items()},
+                grad_err=grad_err, tie_tiles=ties, low_t_pixels=low_t, l1_flips=flips,
+                launches=dict(fwd=fwd_launches, grads=bwd_launches))
+
+
+def p14_gate(what, ranks, ref, fold_ref=None):
+    """Each rank's first step against the oracle `ref` = (params, stats,
+    metrics, Adam first moments): the loss; the first moments, 0.1 x the
+    merged gradient, within BWD_GATE x max|ref| and P14_MU_REL in L2, which
+    a fault in the gradients' scale or merge fails (one Adam step moves a
+    parameter by about lr x sign(g) and hides it); every parameter and
+    statistic at rtol
+    P14_RTOL, atol P14_ATOL, against `fold_ref` when given; and the ranks'
+    parameters bit-equal to each other. Returns the first moments' worst
+    (max abs err, max |ref|, relative L2) of each plane over the ranks."""
+    p_ref, s_ref, m_ref, mu_ref = ref
+    if fold_ref is not None:
+        p_ref, s_ref = fold_ref[:2]
+    loss_ref = float(m_ref["loss"])
+    mu_err = {}
+    for r, res in enumerate(ranks):
+        if abs(res["metrics"]["loss"] - loss_ref) > P14_LOSS_REL * abs(loss_ref):
+            fail(f"phase 14 {what}: rank {r} loss {res['metrics']['loss']} against "
+                 f"{loss_ref}")
+        for group, tree in (("params", p_ref), ("stats", s_ref)):
+            for name, want in tree._asdict().items():
+                got, want = res[group][name], want.cpu()
+                bad = (got - want).abs() > P14_ATOL + P14_RTOL * want.abs()
+                if bad.any():
+                    fail(f"phase 14 {what}: rank {r} {group}/{name}: {int(bad.sum())} "
+                         f"entries outside rtol {P14_RTOL} atol {P14_ATOL}, largest "
+                         f"{(got - want).abs().max().item():.3e}")
+        for name, want in mu_ref._asdict().items():
+            if not want.numel():
+                continue
+            got, want = res["mu"][name], want.cpu()
+            err = (got - want).abs().max().item()
+            rel = ((got - want).norm() / want.norm().clamp(min=1e-30)).item()
+            if not (torch.isfinite(got).all() and rel < P14_MU_REL
+                    and err < BWD_GATE * max(want.abs().max().item(), 1e-12)):
+                fail(f"phase 14 {what}: rank {r} first moment of {name}: max abs err "
+                     f"{err:.3e} (gate {BWD_GATE} x max |ref| "
+                     f"{want.abs().max().item():.3e}), relative L2 {rel:.3e} (gate "
+                     f"{P14_MU_REL})")
+            worst = mu_err.get(name, (0.0, 0.0, 0.0))
+            mu_err[name] = (max(worst[0], err), want.abs().max().item(),
+                            max(worst[2], rel))
+        if res["launches"]["composite_fwd"] == 0 or res["launches"]["composite_bwd"] == 0:
+            fail(f"phase 14 {what}: rank {r} launched no kernel: {res['launches']}")
+    if len({res["checksum"] for res in ranks}) != 1 or not all(
+            torch.equal(ranks[0]["params"][k], res["params"][k])
+            for res in ranks[1:] for k in ranks[0]["params"]):
+        fail(f"phase 14 {what}: the ranks' parameters differ")
+    print(f"  {what}: gated; first moments (max abs err, max |ref|, relative L2) "
+          f"{ {k: tuple(float(f'{x:.3e}') for x in v) for k, v in mu_err.items()} }")
+    return mu_err
+
+
+def p14_report(what, ranks):
+    per = ranks[0]["per_step"]
+    calls = sum(c for c, _ in per.values())
+    nbytes = sum(b for _, b in per.values())
+    print(f"  {what}: step ms per rank {[round(r['step_ms'], 3) for r in ranks]} "
+          f"(10 steps after 2); per step per rank {calls:g} collective calls, "
+          f"{nbytes / 1e6:.3f} MB ({ {op: (c, round(b / 1e6, 3)) for op, (c, b) in per.items()} }), "
+          f"{[round(r['collective_ms'], 3) for r in ranks]} ms inside them (timed "
+          f"steps {[round(r['timed_step_ms'], 3) for r in ranks]} ms); launches of "
+          f"the first step {ranks[0]['launches']}")
+    return dict(step_ms=[r["step_ms"] for r in ranks], calls=calls, bytes=nbytes,
+                by_op=per, collective_ms=[r["collective_ms"] for r in ranks],
+                timed_step_ms=[r["timed_step_ms"] for r in ranks],
+                launches=ranks[0]["launches"])
+
+
+def parse_driver(out):
+    """What a driver run prints: the loss at each report, the count after
+    each topology event, the per-rank launches, the replica checks. The
+    ranks' lines may interleave, even within a line, so each record is
+    matched on its own."""
+    import ast
+
+    losses = {int(m.group(1)): float(m.group(2))
+              for m in re.finditer(r"iter\s+(\d+)\s+loss ([-+.\deE]+)", out)}
+    events = [(int(m.group(1)), int(m.group(2)))
+              for m in re.finditer(r"\[densify\] iter (\d+): \{[^{}]*\} -> (\d+) ", out)]
+    launches = {int(m.group(1)): ast.literal_eval(m.group(2))
+                for m in re.finditer(r"\[kernels\] rank (\d+) launches (\{[^{}]*\})", out)}
+    checks = [(int(m.group(1)), int(m.group(2)))
+              for m in re.finditer(r"iter (\d+): parameters bit-equal on \d+ ranks "
+                                   r"\(checksum (-?\d+)\)", out)]
+    its = re.search(r"Training completed in (\S+)s \((\S+) it/s", out)
+    return dict(losses=losses, events=events, launches=launches, checks=checks,
+                seconds=float(its.group(1)), it_s=float(its.group(2)))
+
+
+def slab_oracle_driver(k, argv):
+    """The one-process oracle of the `--gauss_shard k` runs: the train
+    driver with each step's render replaced by render_gauss_sharded with k
+    slabs in turn on the card, which has the ranks' compositing order and
+    fold (the unsharded order differs at depth ties, and densification
+    reads the gradients it gives)."""
+    import functools
+
+    from hairgs_tpu_torch.drivers import train as driver
+    from hairgs_tpu_torch.parallel.slab import render_gauss_sharded
+    from hairgs_tpu_torch.train import trainer
+
+    trainer.make_gaussian_train_step = functools.partial(
+        trainer.make_gaussian_train_step,
+        render_fn=functools.partial(render_gauss_sharded, num_slabs=k))
+    driver.main(argv)
+
+
+def driver_cmd(argv, ranks, slabs=0):
+    """drivers/train.py under torchrun (`ranks` > 1), alone, or alone with
+    `slabs` slabs in turn (slab_oracle_driver)."""
+    cmd = [sys.executable]
+    if ranks > 1:
+        cmd += ["-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+                str(ranks), "--master_addr", "127.0.0.1", "--master_port",
+                str(free_port())]
+    if slabs:
+        return cmd + [__file__, "--slab-oracle", str(slabs), *argv]
+    return cmd + ["-m", "hairgs_tpu_torch.drivers.train", *argv]
+
+
+def driver_runs(cmds, tmp):
+    """The driver commands {name: argv} at once; fail() on a non-zero exit.
+    Returns {name: parse_driver's dict}."""
+    import os
+
+    outs = run_concurrently(cmds, dict(os.environ, OMP_NUM_THREADS="1"), tmp)
+    for name, (rc, out) in outs.items():
+        if rc:
+            print(out[-6000:])
+            fail(f"phase 14: the driver run {name} failed ({rc})")
+    return {name: parse_driver(out) for name, (_, out) in outs.items()}
+
+
+def driver_compare(what, one, two, n_ranks):
+    """The n-rank run against the one-process run: every rank checked the
+    replicas bit-equal after every topology event and at the end, every
+    rank's counts after the events equal the one-process run's, the loss at
+    the last report within DRIVER_LOSS_REL, every rank's kernels ran. The
+    ranks' lines interleave in any order, so they are counted, not read in
+    order."""
+    from collections import Counter
+
+    events = Counter(two["events"])
+    if sorted(events) != sorted(one["events"]) or set(events.values()) != {n_ranks}:
+        fail(f"phase 14 {what}: counts after the events {two['events']} against "
+             f"{one['events']}")
+    checks = {}
+    for it, checksum in two["checks"]:
+        checks.setdefault(it, []).append(checksum)
+    want = {it for it, _ in one["events"]} | {max(one["losses"])}
+    # an event at the last iteration is checked twice
+    if set(checks) != want or any(len(v) % n_ranks or len(set(v)) != 1
+                                  for v in checks.values()):
+        fail(f"phase 14 {what}: replica checks {checks}, expected at {sorted(want)}")
+    last = max(one["losses"])
+    if abs(two["losses"][last] - one["losses"][last]) > DRIVER_LOSS_REL * abs(
+            one["losses"][last]):
+        fail(f"phase 14 {what}: loss at {last} {two['losses'][last]} against "
+             f"{one['losses'][last]}")
+    for r in range(n_ranks):
+        got = two["launches"].get(r, {})
+        if not got.get("composite_fwd") or not got.get("composite_bwd"):
+            fail(f"phase 14 {what}: rank {r} launched no kernel: {got}")
+    print(f"  {what}: {n_ranks} ranks {two['it_s']:.3f} it/s ({two['seconds']:.1f} s; "
+          f"one process {one['it_s']:.3f} it/s, the runs sharing the card); loss at {last} "
+          f"{two['losses'][last]:.5f} against {one['losses'][last]:.5f}; counts after "
+          f"the events {one['events']}; replicas bit-equal at {sorted(checks)}; "
+          f"launches per rank {two['launches']}")
+    return dict(it_s=two["it_s"], one_it_s=one["it_s"], loss=two["losses"][last],
+                one_loss=one["losses"][last], events=one["events"],
+                checks=sorted(checks), launches=two["launches"])
+
+
+def parallel_steps(scene, cfg, tmp):
+    """Phase 14, steps 2-4 and 6: the parallel Stage-I steps in child
+    ranks against one process, and the sharded checkpoint."""
+    import functools
+
+    from hairgs_tpu_torch.parallel.mesh import build_mesh
+    from hairgs_tpu_torch.parallel.slab import make_slab_train_step, render_gauss_sharded
+    from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+
+    res = {}
+    state_path = f"{tmp}/p14_state.pt"
+    p14_save_state(scene, cfg, state_path)
+    state, active, batch, opt, rcfg, w, h = p14_load_state(state_path)
+    size = dict(width=w, height=h, active_sh_degree=0)
+
+    def oracle(step):
+        p, s, o, m, _ = step(*state, active, batch, 1)
+        torch.cuda.synchronize()
+        return p, s, m, o.mu
+
+    plain = oracle(make_gaussian_train_step(opt, rcfg, device="cuda", **size))
+    # the slab steps' oracle: the 1 x 1 slab step, one table of the
+    # depth-permuted rows (their compositing order, no fold), for the loss
+    # and the gradients. Two things differ with the fold, so the parameters
+    # and statistics are held to one process rendering the same 2 slabs in
+    # turn (the fold's arithmetic), and their difference from the 1 x 1
+    # step is printed: after Adam's first step a parameter moves by
+    # lr x g / (|g| + 1e-15), so where |g| is near 1e-15 a rounding of g
+    # moves it by up to lr; and the viewspace gradients of the statistics
+    # leave out the transmittance cotangent (the compositor's photometric
+    # rows start at 0), which a slab's T receives from the slabs behind it
+    # (a property of the reference, ROADMAP Queue 3)
+    slab1 = oracle(make_slab_train_step("gaussian", opt, rcfg,
+                                        mesh=build_mesh([[0]], device="cuda"), **size))
+    slab2 = oracle(make_gaussian_train_step(
+        opt, rcfg, device="cuda", **size,
+        render_fn=functools.partial(render_gauss_sharded, num_slabs=2)))
+    # what the fold alone moves, in one process
+    fold_mu = {k: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+               for (k, a), b in zip(slab2[3]._asdict().items(), slab1[3]) if b.numel()}
+    print(f"  one process, 2 slabs in turn against the 1 x 1 slab step: first moments "
+          f"relative L2 { {k: f'{v:.3e}' for k, v in fold_mu.items()} }")
+    res["fold_mu_rel"] = fold_mu
+    args = dict(state=state_path)
+    view = spawn_ranks(2, "step", dict(args, data=2, gauss=1), tmp)
+    what = "view-parallel step, 2 gloo ranks x 2 views"
+    mu_err = p14_gate(what, view, plain)
+    res["view_step"] = dict(p14_report(what, view), mu_err=mu_err)
+    for data, gauss in ((1, 2), (2, 2)):
+        what = f"slab step ({data} x {gauss}, {data * gauss} gloo ranks)"
+        ranks = spawn_ranks(data * gauss, "step", dict(args, data=data, gauss=gauss), tmp)
+        mu_err = p14_gate(what, ranks, slab1, fold_ref=slab2)
+        rep = dict(p14_report(what, ranks), mu_err=mu_err)
+        gathers = ranks[0]["counts"].get("all_gather", (0, 0))
+        rep["gather_mb_per_view"] = gathers[1] / max(gathers[0], 1) / 1e6
+        for name, ref in (("slab1", slab1), ("plain", plain)):
+            diff = {}
+            for k, v in ref[0]._asdict().items():
+                if not v.numel():
+                    continue
+                d = (ranks[0]["params"][k] - v.cpu()).abs()
+                at = int(d.argmax())
+                diff[k] = (d.max().item(), int((d > P14_ATOL + P14_RTOL
+                                                 * v.cpu().abs()).sum()),
+                           10 * abs(ref[3]._asdict()[k].reshape(-1)[at].item()))
+            rep[f"{name}_diff"] = diff
+            rep[f"{name}_stats_diff"] = {
+                k: ((ranks[0]["stats"][k] - v.cpu()).abs().max().item(),
+                    int(((ranks[0]["stats"][k] - v.cpu()).abs()
+                         > P14_ATOL + P14_RTOL * v.cpu().abs()).sum()),
+                    ((ranks[0]["stats"][k] - v.cpu()).norm()
+                     / v.cpu().norm().clamp(min=1e-30)).item())
+                for k, v in ref[1]._asdict().items()}
+        print(f"    gathers of the first step {gathers} ({rep['gather_mb_per_view']:.3f} "
+              f"MB per view per rank); not gated, (largest parameter difference, "
+              f"entries outside the step gate, the oracle's |g| there) from the "
+              f"1 x 1 slab step {rep['slab1_diff']} and from the plain unsharded "
+              f"step {rep['plain_diff']}; (largest statistic difference, entries "
+              f"outside, relative L2) from the 1 x 1 slab step "
+              f"{rep['slab1_stats_diff']} and from the plain step "
+              f"{rep['plain_stats_diff']}")
+        res[f"slab_step_{data}x{gauss}"] = rep
+    nccl = spawn_ranks(1, "step", dict(args, data=1, gauss=1), tmp, backend="nccl")
+    what = "NCCL view step, world size 1"
+    mu_err = p14_gate(what, nccl, plain)
+    res["nccl_step"] = dict(p14_report(what, nccl), mu_err=mu_err)
+
+    ckpt = spawn_ranks(2, "checkpoint", dict(args, dir=f"{tmp}/p14_ckpt"), tmp)
+    if not all(r["equal"] for r in ckpt) or ckpt[0]["files"] != [
+            "manifest.json", "shard_0.npz", "shard_1.npz"]:
+        fail(f"phase 14 step 6: the sharded checkpoint is not bit-equal: {ckpt}")
+    print(f"  sharded checkpoint: 2 ranks, bit-equal on reload; files "
+          f"{ckpt[0]['files']}, {[r['bytes'] for r in ckpt]} bytes per shard")
+    res["checkpoint"] = dict(bytes=[r["bytes"] for r in ckpt])
+    return res
+
+
+def parallel_drivers(tmp, merged_dir):
+    """Phase 14, step 5: the train driver under torchrun against one
+    process, on phase 11's capture (Stage I) and phase 12's merged model
+    (Stage III)."""
+    res = {}
+    scene_dir = f"{tmp}/scene"
+    # the runs share the card and the host's cores at once: their it/s are
+    # printed but compare nothing
+    runs = driver_runs({name: driver_cmd(
+        ["-s", scene_dir, "-m", f"{tmp}/p14_{name}", *P14_STAGE1, *extra, "--ip", ""],
+        ranks, slabs) for name, ranks, slabs, extra in (
+            ("one", 1, 0, ()), ("one_slabs", 1, 2, ()), ("view", 2, 0, ()),
+            ("slab", 2, 0, ("--gauss_shard", "2")))}, tmp)
+    res["driver_view"] = driver_compare("Stage-I driver, --view_batch 4", runs["one"],
+                                        runs["view"], 2)
+    res["driver_slab"] = driver_compare("Stage-I driver, --gauss_shard 2 (against "
+                                        "one process, 2 slabs in turn)",
+                                        runs["one_slabs"], runs["slab"], 2)
+    last = max(runs["one"]["losses"])
+    res["driver_slab"]["unsharded"] = dict(events=runs["one"]["events"],
+                                           loss=runs["one"]["losses"][last])
+    # the loss is also held to the unsharded one-process run; the counts
+    # after densification are not (its order at depth ties and the slab
+    # statistics, ROADMAP Queue 3, keep other Gaussians)
+    got, want = runs["slab"]["losses"][last], runs["one"]["losses"][last]
+    if abs(got - want) > DRIVER_LOSS_REL * abs(want):
+        fail(f"phase 14: the --gauss_shard 2 run's loss at {last} {got} against the "
+             f"unsharded run's {want}")
+    print(f"    against the unsharded one-process run: loss at {last} {got:.5f} "
+          f"against {want:.5f} (gated); counts after the events (not gated) "
+          f"{runs['slab']['events'][:1]} against {runs['one']['events']}; one process "
+          f"with 2 slabs: loss {runs['one_slabs']['losses'][last]:.5f}")
+    for name in ("one", "two"):
+        shutil.copytree(merged_dir, f"{tmp}/p14_hair_{name}")
+    runs.update(driver_runs({f"hair_{name}": driver_cmd(
+        ["-s", scene_dir, "-m", f"{tmp}/p14_hair_{name}", *STAGE3_FLAGS, *P14_STAGE3,
+         "--ip", ""], ranks) for name, ranks in (("one", 1), ("two", 2))}, tmp))
+    res["driver_hair"] = driver_compare("Stage-III driver, --view_batch 2",
+                                        runs["hair_one"], runs["hair_two"], 2)
+    return res
+
+
+def parallel_paths(scene, cfg, tmp, merged_dir, final_ply):
+    """Phase 14: the parallel paths on the one card (steps 1-6 of the
+    module docstring, and convert_output on phase 12's final PLY)."""
+    import os
+
+    from hairgs_tpu_torch.drivers import convert_output
+
+    cfg = dataclasses.replace(cfg, max_tiles_per_gaussian=P14_MAX_TILES)
+    seconds = {}
+    t0 = time.perf_counter()
+    res = {"slab_render": slab_render_check(scene, cfg)}
+    seconds["slab_render"] = time.perf_counter() - t0
+    res.update(parallel_steps(scene, cfg, tmp))
+    seconds["steps"] = time.perf_counter() - t0 - sum(seconds.values())
+    res.update(parallel_drivers(tmp, merged_dir))
+    seconds["drivers"] = time.perf_counter() - t0 - sum(seconds.values())
+    res["seconds"] = seconds
+    print(f"  seconds: {seconds}")
+    out = convert_output.main(["-i", final_ply, "-t", "gs", "--edges",
+                               "-o", f"{tmp}/p14_strands.ply"])
+    with open(out, "rb") as f:
+        header = f.read(400).decode("ascii", "ignore")
+    if "element edge" not in header:
+        fail(f"convert_output wrote no edge PLY: {header[:200]}")
+    print(f"  convert_output: {os.path.getsize(out)} bytes from {final_ply}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
+    if sys.argv[1:2] == ["--rank-case"]:
+        return rank_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--slab-oracle"]:
+        return slab_oracle_driver(int(sys.argv[2]), sys.argv[3:])
     from hairgs_tpu_torch import kernels
     from hairgs_tpu_torch.bench_scene import build_bench_scene
     from hairgs_tpu_torch.core.camera import stack_cameras
@@ -1963,8 +2679,10 @@ def main():
     t_phase = time.perf_counter()
     hair_grads_against_cpu(cfg)
     stage2 = stage2_merge(tmp, stage1["f1"])
-    # phase 13's async run starts from the same merged model
+    # phase 13's async run and phase 14's Stage-III runs start from the same
+    # merged model
     shutil.copytree(f"{tmp}/model", f"{tmp}/model_async")
+    shutil.copytree(f"{tmp}/model", f"{tmp}/model_merged")
     stage3, keep3 = stage3_driver(tmp)
     print(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1980,8 +2698,18 @@ def main():
     phase13["gabor"] = gabor_check(tmp, keep1, smi)
     phase13["usc_parse"] = usc_parse_check(tmp, smi)
     phase13["grid"] = grid_check(keep3)
-    tmp_dir.cleanup()
     print(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+
+    print("phase 14: the parallel paths (view-parallel and depth-slab steps, the "
+          "driver under torchrun, sharded checkpoints) on the one card")
+    t_phase = time.perf_counter()
+    from hairgs_tpu_torch.scene import search_for_max_iteration
+
+    final_ply = (f"{tmp}/model/point_cloud/iteration_"
+                 f"{search_for_max_iteration(f'{tmp}/model/point_cloud')}/point_cloud.ply")
+    phase14 = parallel_paths(scene, cfg, tmp, f"{tmp}/model_merged", final_ply)
+    tmp_dir.cleanup()
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -2018,7 +2746,8 @@ def main():
                       "host_median_step_ms": median_ms,
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
                       "stage1_driver": stage1, "stage2_merge": stage2,
-                      "stage3_driver": stage3, "phase13": phase13, "card": smi}))
+                      "stage3_driver": stage3, "phase13": phase13,
+                      "phase14": phase14, "card": smi}, default=str))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -88,10 +88,10 @@ class RuntimeConfig:
     """Runtime knobs with no reference equivalent (the JAX package's)."""
 
     view_batch: int = 1  # cameras per step, averaged into one Adam step
-    mesh_max_devices: int = 0  # cap on the view-parallel device count
-    # (views run on one card until parallel/ is ported, ROADMAP Queue 1 item 9)
-    gauss_shard: int = 1  # >1: depth-slab shard the Gaussian axis (not
-    # ported: ROADMAP Queue 1 item 9)
+    mesh_max_devices: int = 0  # cap on the view-parallel rank count under
+    # torchrun (0: every rank; parallel/mesh.py::make_view_mesh)
+    gauss_shard: int = 1  # >1: depth-slab shard the Gaussian axis over that
+    # many ranks under torchrun (parallel/slab.py)
     max_tiles_per_gaussian: int = 16
     freeze_tile_budget: bool = False  # pin max_tiles_per_gaussian and
     # max_pairs_per_tile (disable their adaptive controllers)

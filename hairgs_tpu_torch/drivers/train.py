@@ -26,9 +26,23 @@ new size costs no recompilation. The in-training strand metrics run on the
 model's device (`--device_eval`, evaluation/device_metrics.py; `auto` on a
 CUDA model); the final evaluation takes the host oracle. The SIBR viewer
 (`--ip`, `--port`), the 2D grid (`--vis2d`) and the pyvista strand view
-(`--vis3d`) are served as in train.py. Gaussian-axis sharding
-(`--gauss_shard > 1`) needs parallel/, not ported yet (ROADMAP Queue 1
-item 9).
+(`--vis3d`) are served as in train.py.
+
+Under torchrun (WORLD_SIZE > 1) the driver joins the process group by the
+backend rule of parallel/mesh.py (nccl when each rank has a card of its
+own, gloo on the CPU or when ranks share a card) and builds the mesh as
+train.py does: `--gauss_shard g` cuts the Gaussian axis into g depth slabs
+(parallel/slab.py) over a (data x g) mesh, data = min(world // g,
+view_batch) reduced until it divides view_batch; otherwise the
+`--view_batch` views spread over the largest rank count that divides the
+batch (`--mesh_max_devices` caps it). A rank outside the mesh raises at
+start-up. Every rank pops the same cameras from the seeded stream and
+takes its slice, every rank runs the topology events on identical state,
+and rank 0 alone writes the PLY, cfg_args, logs and evaluations and serves
+the viewer while the others wait at a barrier:
+
+    torchrun --nproc_per_node N -m hairgs_tpu_torch.drivers.train -s <scene> \
+        -m <out> --view_batch K [--gauss_shard G]
 """
 
 import os
@@ -40,6 +54,7 @@ from argparse import ArgumentParser
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hairgs_tpu_torch.config import (
     GeneralConfig,
@@ -147,12 +162,18 @@ class TilePairCapController:
 
 
 def prepare_output_path(args):
-    """utils/system.py:41-54 — default ./output/<uuid>, persist cfg_args."""
+    """utils/system.py:41-54 — default ./output/<uuid>, persist cfg_args.
+    Under torchrun only rank 0 writes, and the output path must be given:
+    each rank would draw its own uuid."""
+    rank = int(os.environ.get("RANK", "0"))
     if not args.model_path:
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError("pass -m <model_path> under torchrun")
         args.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
     print(f"Output folder: {args.model_path}")
     os.makedirs(args.model_path, exist_ok=True)
-    save_cfg_args(args.model_path, args)
+    if rank == 0:
+        save_cfg_args(args.model_path, args)
 
 
 def use_device_eval(device_eval: str, device: torch.device) -> bool:
@@ -189,6 +210,14 @@ def training(mp, op, gp, rt, args, logger=None):
     from hairgs_tpu_torch.evaluation.metrics import compute_metrics
     from hairgs_tpu_torch.logging_utils import Logger, TrainingInfo, get_logger
     from hairgs_tpu_torch.models.hair import HairModel
+    from hairgs_tpu_torch.parallel.mesh import (
+        MeshReducer,
+        init_distributed,
+        make_view_mesh,
+        replicate,
+        shard_view_batch,
+    )
+    from hairgs_tpu_torch.parallel.slab import make_2d_mesh, make_slab_train_step
     from hairgs_tpu_torch.render.renderer import RasterConfig
     from hairgs_tpu_torch.scene import Scene
     from hairgs_tpu_torch.topo.graph_ops import (
@@ -203,16 +232,23 @@ def training(mp, op, gp, rt, args, logger=None):
         make_hair_train_step,
     )
 
-    if rt.gauss_shard > 1:
-        raise NotImplementedError(
-            "--gauss_shard > 1 needs the port of parallel/slab.py "
-            "(ROADMAP Queue 1 item 9)")
     device = resolve_device(mp.data_device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        if rt.async_topology:
+            raise ValueError("--async_topology installs an event when its thread "
+                             "finishes, which differs between ranks: run it in "
+                             "one process")
+        if not dist.is_initialized():
+            init_distributed(mp.data_device)
+    rank = dist.get_rank() if world > 1 else 0
+    writer = rank == 0  # the rank that writes files and logs
     scene = Scene(args, shuffle=True, capacity_round=rt.capacity_round)
     model = scene.gaussians
     model.training_setup(op)
     is_hair = isinstance(model, HairModel)
-    logger = get_logger(args) if logger is None else logger
+    if logger is None:
+        logger = get_logger(args) if writer else Logger()
     info = TrainingInfo(iter=scene.loaded_iter)
 
     cameras = scene.get_cameras()
@@ -266,7 +302,7 @@ def training(mp, op, gp, rt, args, logger=None):
 
     # interactive 3D strand view (reference train.py:61-62; pyvista-gated)
     vis3d_plotter = vis3d_polydata = None
-    if gp.vis3d and is_hair:
+    if gp.vis3d and is_hair and writer:
         try:
             from hairgs_tpu_torch.visualization import create_pv_background_plotter
 
@@ -298,7 +334,7 @@ def training(mp, op, gp, rt, args, logger=None):
                                       bidirectional=op.bidirectional_eval)
 
     def run_eval(final: bool = False):
-        if scene.gt is None:
+        if scene.gt is None or not writer:
             return None, None
         info.eval_on_device = device_eval and not final
         if info.eval_on_device:
@@ -309,6 +345,8 @@ def training(mp, op, gp, rt, args, logger=None):
         return compute_metrics(pred=pred, gt=scene.gt, bidirectional=op.bidirectional_eval)
 
     def run_image_eval():
+        if not writer:
+            return
         info.image_metrics = evaluate_image_metrics(model, cameras, config=raster_cfg)
         if info.image_metrics and not gp.quiet:
             parts = "  ".join(f"{k} {v:.3f}" for k, v in info.image_metrics.items())
@@ -319,20 +357,82 @@ def training(mp, op, gp, rt, args, logger=None):
 
     # view batches: a K-view step advances the iteration counter by K, so
     # every cadence and the number of views seen match K reference
-    # iterations; gradients are the view mean, statistics count per view
+    # iterations; gradients are the view mean, statistics count per view.
+    # Under torchrun the views spread over the ranks of a mesh
+    # (train.py:327-367)
     view_batch = max(1, rt.view_batch)
-    if view_batch > 1:
-        print(f"[parallel] view_batch={view_batch} on one device ({device})")
+    gauss_shard = max(1, rt.gauss_shard)
+    mesh = None
+    if gauss_shard > 1:
+        if world < gauss_shard:
+            raise ValueError(f"--gauss_shard {gauss_shard} needs that many ranks "
+                             f"(torchrun --nproc_per_node), have {world}")
+        data_size = max(1, min(world // gauss_shard, view_batch))
+        while view_batch % data_size:
+            data_size -= 1
+        mesh = make_2d_mesh(data_size, gauss_shard, device=mp.data_device)
+        capacity = (model.graph.endpoint_pairs.shape[0] if is_hair
+                    else model.capacity)
+        if capacity % gauss_shard:
+            raise ValueError(f"arena capacity {capacity} must be a multiple of "
+                             f"--gauss_shard {gauss_shard} (use a capacity_round "
+                             f"that is)")
+        print(f"[parallel] gauss_shard={gauss_shard} x data={data_size} "
+              f"({mesh.size} device(s))")
+    elif world > 1:
+        mesh = make_view_mesh(view_batch, rt.mesh_max_devices, device=mp.data_device)
+    if view_batch > 1 and gauss_shard == 1:
+        print(f"[parallel] view_batch={view_batch} over "
+              f"{mesh.size if mesh is not None else 1} device(s)")
+    if world > 1 and (mesh is None or mesh.coords is None):
+        raise RuntimeError(
+            f"rank {rank} of {world} lies outside the mesh "
+            f"({mesh.size if mesh is not None else 1} rank(s) for --view_batch "
+            f"{view_batch}, --gauss_shard {gauss_shard}, --mesh_max_devices "
+            f"{rt.mesh_max_devices}): launch that many processes")
+    if mesh is not None:
+        # one model, replicated: every rank starts from rank 0's state
+        replicate((model.params, model.stats, model.opt_state), mesh)
+        # every rank must sync (and so run the controllers) on the same steps
+        flag = torch.tensor([float(type(logger) is not Logger)], device=device)
+        logging_from_writer = bool(mesh.broadcast(flag).item())
+
+    def check_replicas(iteration):
+        """The ranks' parameters stay bit-equal only if every all-reduced
+        value is identical on every rank: checked, never assumed, after
+        each topology event and at the end, by an exact checksum (the
+        float bits summed as integers) gathered from every rank."""
+        if mesh is None:
+            return
+        bits = torch.stack([p.detach().contiguous().view(torch.int32)
+                            .to(torch.int64).sum() for p in model.params]).sum()
+        sums = mesh.all_gather(bits.reshape(1), "mesh").reshape(-1).tolist()
+        if len(set(sums)) != 1:
+            raise RuntimeError(f"the ranks' parameters diverged at iteration "
+                               f"{iteration}: checksums {sums}")
+        if not gp.quiet:
+            print(f"[parallel] iter {iteration}: parameters bit-equal on "
+                  f"{len(sums)} ranks (checksum {sums[0]})")
 
     def build_step():
         common = dict(width=width, height=height,
                       active_sh_degree=model.active_sh_degree,
-                      spatial_lr_scale=model.spatial_lr_scale, device=device)
+                      spatial_lr_scale=model.spatial_lr_scale)
+        if gauss_shard > 1:
+            return make_slab_train_step(
+                "hair" if is_hair else "gaussian", op, raster_cfg,
+                dist_to_scale_factor=model.dist_to_scale_factor if is_hair else None,
+                mesh=mesh, **common)
+        # the view-parallel step (JAX's make_sharded_*_step): the trainer's
+        # step merging each rank's views over the mesh
+        reducer = MeshReducer(mesh) if mesh is not None else None
         if is_hair:
             return make_hair_train_step(
                 op, raster_cfg, dist_to_scale_factor=model.dist_to_scale_factor,
-                use_magnet=op.lambda_magnet > 0, **common)
-        return make_gaussian_train_step(op, raster_cfg, **common)
+                use_magnet=op.lambda_magnet > 0, device=device, reducer=reducer,
+                **common)
+        return make_gaussian_train_step(op, raster_cfg, device=device,
+                                        reducer=reducer, **common)
 
     step_fn = build_step()
 
@@ -363,7 +463,7 @@ def training(mp, op, gp, rt, args, logger=None):
 
     # live viewer (SIBR protocol; train.py:95-131)
     gui = None
-    if gp.ip:
+    if gp.ip and writer:
         from hairgs_tpu_torch.network_gui import NetworkGUI
 
         gui = NetworkGUI()
@@ -426,7 +526,8 @@ def training(mp, op, gp, rt, args, logger=None):
     def check_finite(loss, iteration):
         if rt.debug and not np.isfinite(loss):
             dump = os.path.join(args.model_path, f"snapshot_iter{iteration}.npz")
-            model.save_checkpoint(dump)
+            if writer:
+                model.save_checkpoint(dump)
             raise FloatingPointError(
                 f"non-finite loss {loss} at iteration {iteration}; state dumped"
                 f" to {dump}"
@@ -434,7 +535,8 @@ def training(mp, op, gp, rt, args, logger=None):
 
     viewpoint_stack = []
     ema_loss = 0.0
-    logging_active = type(logger) is not Logger
+    logging_active = (type(logger) is not Logger if mesh is None
+                      else logging_from_writer)
     report_interval = 50
     rt.log_interval = max(1, rt.log_interval)
     budget_ctl = TileBudgetController(rt.max_tiles_per_gaussian)
@@ -460,7 +562,7 @@ def training(mp, op, gp, rt, args, logger=None):
         prev_iter = iteration
         iteration += view_batch
         step_count += 1
-        if rt.profile_steps > 0:
+        if rt.profile_steps > 0 and writer:
             if step_count == 2:  # skip the first step
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -512,6 +614,8 @@ def training(mp, op, gp, rt, args, logger=None):
             )
         cam = cams_step[0]
         cam_input = stack_cameras(cams_step) if view_batch > 1 else cam
+        if mesh is not None and view_batch > 1:
+            cam_input = shard_view_batch(cam_input, mesh)
 
         t0 = time.time()
         if is_hair:
@@ -559,7 +663,8 @@ def training(mp, op, gp, rt, args, logger=None):
                 step_fn = build_step()
                 # persist the converged budget for a resumed run
                 args.max_tiles_per_gaussian = new_budget
-                save_cfg_args(args.model_path, args)
+                if writer:
+                    save_cfg_args(args.model_path, args)
             # compact pair-table capacity: grow immediately on truncation,
             # shrink on sustained low occupancy
             overflow_cap = int(m.get("overflow_capacity", 0))
@@ -593,7 +698,8 @@ def training(mp, op, gp, rt, args, logger=None):
                     raster_cfg.pair_capacity, new_mp)
                 step_fn = build_step()
                 args.max_pairs_per_tile = new_mp
-                save_cfg_args(args.model_path, args)
+                if writer:
+                    save_cfg_args(args.model_path, args)
             overflow = overflow_tiles + overflow_pairs + overflow_cap
             if overflow and not gp.quiet:
                 print(f"[warn] iter {iteration}: {overflow} binning overflows "
@@ -677,6 +783,7 @@ def training(mp, op, gp, rt, args, logger=None):
                 smooth_pairs, smooth_valid, magnet_idx = strand_tables()
             _sync(device)
             info.topology_ms = (time.perf_counter() - t_topo) * 1e3
+            check_replicas(iteration)
             if not gp.quiet:
                 size = (f"{model.num_segments} segments, "
                         f"{len(model.strands_info.list_strands)} strands"
@@ -724,9 +831,17 @@ def training(mp, op, gp, rt, args, logger=None):
             info.image_metrics = None
         logger.log(info, model)
         if crossed(gp.save_frequency) or iteration >= op.iterations:
-            path = scene.save(iteration)
-            print(f"\n[ITER {iteration}] Saved scene to {path}")
+            if writer:
+                path = scene.save(iteration)
+                print(f"\n[ITER {iteration}] Saved scene to {path}")
+            if mesh is not None:
+                mesh.barrier()
 
+    check_replicas(iteration)
+    if device.type == "cuda":
+        from hairgs_tpu_torch.render.composite_pairs import launches
+
+        print(f"[kernels] rank {rank} launches {launches}")
     if profiler is not None:
         stop_profiler()
     if vis3d_plotter is not None:  # reference train.py:263-265
@@ -760,13 +875,17 @@ def main(argv=None):
     from hairgs_tpu_torch.system import safe_state
 
     safe_state(getattr(args, "quiet", False))
-    return training(
-        extract_config(args, ModelConfig),
-        extract_config(args, OptimizationConfig),
-        extract_config(args, GeneralConfig),
-        extract_config(args, RuntimeConfig),
-        args,
-    )
+    try:
+        return training(
+            extract_config(args, ModelConfig),
+            extract_config(args, OptimizationConfig),
+            extract_config(args, GeneralConfig),
+            extract_config(args, RuntimeConfig),
+            args,
+        )
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -322,3 +322,33 @@ def gather_pairs(packed, paged_src, inv_paged, r_max):
     """Paged pair table (P_pad, PACK) from the per-Gaussian packed table
     (N+1, PACK) whose last row is zero (the source of padding slots)."""
     return _GatherPairs.apply(packed, paged_src, inv_paged, r_max)
+
+
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, fwd_idx, bwd_idx):
+        ctx.save_for_backward(bwd_idx)
+        ctx.n_rows = rows.shape[0]
+        return rows[fwd_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (bwd_idx,) = ctx.saved_tensors
+        back = g[bwd_idx]
+        pad = ctx.n_rows - back.shape[0]
+        if pad > 0:
+            back = torch.cat([back, back.new_zeros((pad,) + back.shape[1:])])
+        return back, None, None
+
+
+def permute_rows(rows, fwd_idx, bwd_idx):
+    """rows[fwd_idx] whose backward is a gather, g[bwd_idx], instead of
+    autograd's scatter-add (binning.py:380-406 of the JAX package; the
+    depth-slab render selects its rows with it).
+
+    fwd_idx and bwd_idx are mutually inverse over the real entries; padding
+    entries on either side point at zero rows or slots, and the cotangent
+    of `rows` gets zero rows appended up to rows' length. On a permutation
+    it equals autograd's index_add bit for bit: every row receives exactly
+    one cotangent row."""
+    return _PermuteRows.apply(rows, fwd_idx, bwd_idx)

@@ -192,9 +192,42 @@ def _per_view(fn, camera):
     return torch.stack(losses).mean(), mean_grads, torch.stack(offset_grads), aux
 
 
+COUNTERS = ("overflow_pairs", "overflow_tiles", "overflow_capacity", "pairs_demand")
+
+
+def _merge_views(reducer, loss, grads, offset_grad, aux, stats, active):
+    """The step's view results with the statistics folded in: (loss, grads,
+    loss_dict, stats, counters). A `reducer` (parallel/mesh.py::MeshReducer)
+    merges each rank's results over the ranks first: the viewspace
+    gradients (`offsets`), then the losses, gradients, this step's
+    statistics and counters (`merge`)."""
+    loss_dict = dict(aux["loss_dict"])
+    counters = {k: aux[k] for k in COUNTERS}
+    if reducer is None:
+        return (loss, grads, loss_dict,
+                _update_stats(stats, aux["radii"], offset_grad, active), counters)
+    offset_grad = reducer.offsets(offset_grad)
+    delta = _update_stats(GaussianStats(*[torch.zeros_like(s) for s in stats]),
+                          aux["radii"], offset_grad, active)
+    loss, merged, loss_dict, delta, counters = reducer.merge(
+        loss, grads, loss_dict, delta, counters)
+    stats = GaussianStats(
+        max_radii2d=torch.maximum(stats.max_radii2d, delta.max_radii2d),
+        xyz_grad_accum=stats.xyz_grad_accum + delta.xyz_grad_accum,
+        denom=stats.denom + delta.denom)
+    return loss, type(grads)(*merged), loss_dict, stats, counters
+
+
+def _metrics(loss, loss_dict, counters):
+    train_psnr = loss_dict.pop("psnr")
+    return dict(loss=loss, psnr=train_psnr,
+                **{f"loss/{k}": v for k, v in loss_dict.items()}, **counters)
+
+
 def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
                              height: int, active_sh_degree: int,
-                             spatial_lr_scale: float = 1.0, device="cuda"):
+                             spatial_lr_scale: float = 1.0, device="cuda",
+                             render_fn=render, reducer=None):
     """Build the Stage-I train step.
 
     step_fn(params, stats, opt_state, active, camera, step) -> (params,
@@ -203,7 +236,8 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
     a batch averages the views' losses and gradients into one Adam step.
     All tensors live on `device`. `step` is a Python int (its learning rate
     is then computed in float32 on the host, so the card never waits for a
-    copy) or a 0-d tensor.
+    copy) or a 0-d tensor. `render_fn` and `reducer` make the parallel
+    steps of parallel/ (a depth-slab render; the merge over ranks).
     """
     resolve_device(device)
 
@@ -211,24 +245,18 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
         def one_view(cam):
             return render_loss_and_grads(
                 lambda p: gaussian_render_inputs(p, cam.cam_center, active_sh_degree),
-                params, cam, active, opt_cfg, raster_cfg, width, height)
+                params, cam, active, opt_cfg, raster_cfg, width, height,
+                render_fn=render_fn)
 
         loss, grads, offset_grad, aux = _per_view(one_view, camera)
-        stats = _update_stats(stats, aux["radii"], offset_grad, active)
+        loss, grads, loss_dict, stats, counters = _merge_views(
+            reducer, loss, grads, offset_grad, aux, stats, active)
         lr_tree = gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(xyz=lr_tree.xyz.item())
         with torch.no_grad():
             params, opt_state = adam_step(params, grads, opt_state, lr_tree)
-        loss_dict = dict(aux["loss_dict"])
-        train_psnr = loss_dict.pop("psnr")
-        metrics = dict(loss=loss, psnr=train_psnr,
-                       **{f"loss/{k}": v for k, v in loss_dict.items()},
-                       overflow_pairs=aux["overflow_pairs"],
-                       overflow_tiles=aux["overflow_tiles"],
-                       overflow_capacity=aux["overflow_capacity"],
-                       pairs_demand=aux["pairs_demand"])
-        return params, stats, opt_state, metrics, aux["image"]
+        return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
 
     return step_fn
 
@@ -246,7 +274,8 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
                          height: int, active_sh_degree: int,
                          spatial_lr_scale: float = 1.0,
                          dist_to_scale_factor: float, use_smooth: bool = True,
-                         use_magnet: bool = False, device="cuda"):
+                         use_magnet: bool = False, device="cuda",
+                         render_fn=render, reducer=None):
     """Build the Stage-III train step.
 
     step_fn(params, graph, stats, opt_state, camera, step, smooth_pairs,
@@ -257,7 +286,9 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
     changes, rebuilt on the host after each). With use_magnet, magnet_idx =
     (strand_endpoint_ids, complementary_ids, valid) from
     topo.strands.magnet_indices. Index tables are int64 tensors on
-    `device`; `step` is a Python int or a 0-d tensor, as in Stage I.
+    `device`; `step` is a Python int or a 0-d tensor, as in Stage I. The
+    strand regularizers act on the replicated endpoints, so a `reducer`
+    merges the render terms first and they are added once after it.
     """
     resolve_device(device)
 
@@ -267,10 +298,12 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
             return render_loss_and_grads(
                 lambda p: hair_render_inputs(p, graph, cam.cam_center,
                                              active_sh_degree, dist_to_scale_factor),
-                params, cam, graph.seg_active, opt_cfg, raster_cfg, width, height)
+                params, cam, graph.seg_active, opt_cfg, raster_cfg, width, height,
+                render_fn=render_fn)
 
         loss, grads, offset_grad, aux = _per_view(one_view, camera)
-        loss_dict = dict(aux["loss_dict"])
+        loss, grads, loss_dict, stats, counters = _merge_views(
+            reducer, loss, grads, offset_grad, aux, stats, graph.seg_active)
 
         # the strand regularizers act on the endpoints directly
         if use_smooth and opt_cfg.lambda_smooth > 0:
@@ -290,19 +323,11 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
             grads = grads._replace(endpoints=grads.endpoints + g)
             loss_dict["magnet"] = magnet / opt_cfg.lambda_magnet
 
-        stats = _update_stats(stats, aux["radii"], offset_grad, graph.seg_active)
         lr_tree = hair_lr_tree(opt_cfg, step, spatial_lr_scale)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(endpoints=lr_tree.endpoints.item())
         with torch.no_grad():
             params, opt_state = adam_step(params, grads, opt_state, lr_tree)
-        train_psnr = loss_dict.pop("psnr")
-        metrics = dict(loss=loss, psnr=train_psnr,
-                       **{f"loss/{k}": v for k, v in loss_dict.items()},
-                       overflow_pairs=aux["overflow_pairs"],
-                       overflow_tiles=aux["overflow_tiles"],
-                       overflow_capacity=aux["overflow_capacity"],
-                       pairs_demand=aux["pairs_demand"])
-        return params, stats, opt_state, metrics, aux["image"]
+        return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
 
     return step_fn

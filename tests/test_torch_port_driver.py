@@ -280,16 +280,18 @@ def test_paged_run_densifies_and_resumes(scene_dir, tmp_path, monkeypatch):
 
 
 def test_unported_branches_raise(scene_dir, tmp_path, monkeypatch):
-    """The branch still to port (`--gauss_shard > 1`) raises naming its
-    ROADMAP item (`--device_eval true`, which raised too, runs since
-    evaluation/device_metrics.py was ported:
-    tests/test_torch_port_device_metrics.py); a 5-element PLY (Stage II's
+    """Every branch is ported: `--gauss_shard > 1`, which raised until
+    parallel/ was ported, now asks for as many ranks as slabs when one
+    process runs it, as train.py asks for devices (it runs under torchrun:
+    tests/test_torch_port_parallel_driver.py); `--device_eval true` runs
+    since evaluation/device_metrics.py was ported
+    (tests/test_torch_port_device_metrics.py); a 5-element PLY (Stage II's
     output), which raised before the hair model was ported, now loads as a
     HairModel."""
     from hairgs_tpu_torch.models.hair import HairModel
     from hairgs_tpu_torch.scene import Scene
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="--gauss_shard 2 needs that many ranks"):
         _run("torch", _argv(scene_dir, str(tmp_path / "item 9"), 2,
                             ("--gauss_shard", "2")), monkeypatch)
     hair = HairModel(sh_degree=0, capacity_round=64, device="cpu")

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of hairgs_tpu_torch (the
-drivers, the hair model, the topology and the native library's wrapper
-too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
+drivers, the hair model, the topology, the parallel package and the native
+library's wrapper too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
 nothing of JAX or of the JAX package, and leaves TF32 switched off for
 matmuls and for cuDNN's convolutions."""
 
@@ -43,9 +43,10 @@ def test_port_imports_nothing_of_jax():
                  "evaluation.device_metrics", "topo.async_events", "drivers.render",
                  "drivers.parse_usc_hairsalon", "data.vision", "data.usc",
                  "data.head", "data.cy", "data.flame", "visualization",
-                 "network_gui"):
+                 "network_gui", "parallel", "parallel.mesh", "parallel.slab",
+                 "parallel.multihost", "drivers.convert_output"):
         assert f"hairgs_tpu_torch.{name}" in report["modules"], name
-    assert len(report["modules"]) >= 66
+    assert len(report["modules"]) >= 71
     assert report["foreign"] == []
     assert report["tf32"] is False
     assert report["cudnn_tf32"] is False
