@@ -54,9 +54,21 @@ through NCCL at world size 1; the train driver under torchrun
 Stage-III iterations with `--view_batch 2`) against one process, its ranks
 bit-equal after every topology event; a 2-rank sharded checkpoint; and
 `drivers/convert_output.py` on phase 12's final PLY. Each rank is a child
-process (`--rank-case`, or torchrun's) with its own timeout.
+process (`--rank-case`, or torchrun's) with its own timeout; 15 the
+reference pipeline of scripts/run_reference_schedule.sh through
+`drivers/pipeline.py`, each stage a child process, on its seed-0 scene (150
+strands x 24 points, 16 views at 512x512, written on the card, no GT render
+dropping a pair): the scene, the first 10 000 iterations of Stage I's
+reference schedule and the merge run beside phases 11-14 (the whole 30 000
+would not fit the time limit); then the eval driver on the merged PLY
+against the merge's own evaluation, the npz checkpoints of the Gaussian and
+the hair model as bit-equal resumes, the merge driver's `--clean`, Stage
+III's first 1000 iterations and the eval driver on its last PLY.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase15 30000 [S]   # phase 15 alone, the whole
+    # Stage-I schedule held to the JAX chain's quality; with S, the whole
+    # Stage-III schedule afterwards until S seconds after the start
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -691,6 +703,28 @@ def probe_bound_ms(m, n, k, n_elem):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def probe_device_ms(fn, reps):
+    """Mean device time per call of the probe kernel over reps calls, from
+    the profiler's device activity (the CUDA-event time of cuda_ms holds the
+    host's work of each call as well); "not measured" without any."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    probe = [r for r in rows if "probe" in r[0]]
+    if not probe:
+        return f"not measured (device rows {rows[:4]})"
+    return round(sum(r[1] for r in probe) / reps, 6)
+
+
 def check_probe(device):
     """The probe's entry point on the card, its kernel against its plain
     version and float64, and its times. Returns the kernels-line entry."""
@@ -726,16 +760,18 @@ def check_probe(device):
     plain_ms = cuda_ms(lambda: pp.probe_plain(*t), 200)
     lib_ms = cuda_ms(lambda: pp.library_outputs(*t), 200)
     bound, by = probe_bound_ms(256, 128, 128, t[2].numel())
-    print(f"  precision_probe {ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-          f"{lib_ms:.4f} ms: torch.matmul fp32 and TF32, exp, log1p; bound "
-          f"{bound:.6f} ms by {by})")
+    device_ms = probe_device_ms(lambda: pp.probe_cuda(*t), 200)
+    print(f"  precision_probe {ms:.4f} ms per call between CUDA events around the "
+          f"Python call, of it {device_ms} ms of kernel time on the device "
+          f"(torch.profiler) (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms: "
+          f"torch.matmul fp32 and TF32, exp, log1p; bound {bound:.6f} ms by {by})")
     return {"name": "precision_probe", "route": "cuda",
             "source": "hairgs_tpu_torch/csrc/precision_probe.cu",
             "replaces": "scripts/mosaic_precision_probe.py:41",
             "launches": launches,
             "max_abs_err": max(e for e, _ in plain_err.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": device_ms}
 
 
 # phase 11: the Stage-I driver on a USC-scale scene
@@ -2414,6 +2450,622 @@ def parallel_paths(scene, cfg, tmp, merged_dir, final_ply):
     return res
 
 
+# phase 15: the reference pipeline (scripts/run_reference_schedule.sh) on its
+# seed-0 scene, through drivers/pipeline.py, each stage a child process
+P15_COMMON = ["--max_tiles_per_gaussian", "64", "--capacity_round", "65536",
+              "--eval_frequency", "10000"]  # run_reference_schedule.sh:29
+P15_FULL = 30000  # the reference schedule's Stage I (iterations' default)
+# this script's Stage I: the first 10 000 iterations of the same schedule,
+# since the whole of it does not fit the script's time limit beside phases
+# 1-14 (PERF.md §4); `--phase15 30000` runs it whole, with the gates
+P15_STAGE1 = 10000
+P15_STAGE3 = 1000  # Stage III's first iterations, every cadence at its default
+P15_STRETCH = 3000  # it/s per stretch of one opacity-reset interval
+P15_VIEWS = 16
+P15_SEGMENTS = 150 * 23
+# the JAX package's chain on this scene (TPU v5e; quality only): after the
+# merge, BASELINE.md:340 (round 5); Stage I at 30 000, BASELINE.md:40;
+# Stage III's first 1000 iterations, BASELINE.md:42 (round-2 code)
+JAX_MERGED = {"precision(b)": 0.4380, "recall(b)": 0.6159, "f1(b)": 0.5120,
+              "strands": 48044}
+JAX_STAGE1_PSNR = 21.57
+JAX_III_1K = {"f1(b)": 0.393, "recall(b)": 0.799}
+# the gates at the full Stage I: five times the spread of the two JAX chains
+# on this scene (BASELINE.md:40-41 against :340: 0.006 in F1, 2.7% in strands)
+P15_GATES = {"f1(b)": 0.03, "precision(b)": 0.04, "recall(b)": 0.04}
+P15_STRANDS_REL = 0.15
+P15_PSNR_MIN = JAX_STAGE1_PSNR - 0.5
+STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")  # safe_state's suffix
+
+
+class Stamped:
+    """`cmd` started from the repo root in its own session, its output read
+    line by line on a thread into `log` and into a list of (host clock,
+    line without safe_state's time stamp). The session is killed at the
+    timeout, and at exit if it still runs (a fail() elsewhere)."""
+
+    def __init__(self, cmd, log, timeout):
+        import atexit
+        import os
+        import threading
+
+        self.cmd, self.lines, self.killed = cmd, [], False
+        self.t0 = time.perf_counter()
+        self.p = subprocess.Popen(cmd, env=dict(os.environ, PYTHONUNBUFFERED="1"),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, start_new_session=True,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.reader = threading.Thread(target=self._read, args=(log,), daemon=True)
+        self.reader.start()
+        self.timer = threading.Timer(timeout, self._kill, args=(True,))
+        self.timer.daemon = True
+        self.timer.start()
+        atexit.register(self._kill)
+
+    def _read(self, log):
+        with open(log, "w") as f:
+            for line in self.p.stdout:
+                f.write(line)
+                f.flush()
+                self.lines.append((time.perf_counter(),
+                                   STAMP.sub("", line.rstrip("\n"))))
+
+    def _kill(self, timed_out=False):
+        import os
+        import signal
+
+        if self.p.poll() is None:
+            self.killed |= timed_out
+            os.killpg(self.p.pid, signal.SIGKILL)
+
+    def pause(self, pause=True):
+        """Stop (or continue) the session, so that a timing elsewhere has
+        the card to itself."""
+        import os
+        import signal
+
+        if self.p.poll() is None:
+            os.killpg(self.p.pid, signal.SIGSTOP if pause else signal.SIGCONT)
+            time.sleep(1.0 if pause else 0.0)  # its queued kernels drain
+
+    def wait(self):
+        """(exit code, or None when killed at the timeout, lines)."""
+        self.reader.join()
+        self.p.wait()
+        self.timer.cancel()
+        self.seconds = time.perf_counter() - self.t0
+        return (None if self.killed else self.p.returncode), self.lines
+
+
+def run_stamped(cmd, log, timeout):
+    return Stamped(cmd, log, timeout).wait()
+
+
+def literal(text):
+    """A printed dict of numbers, numpy scalars' reprs included."""
+    import ast
+
+    return ast.literal_eval(re.sub(r"np\.\w+\(([^()]*)\)", r"\1", text))
+
+
+def pipeline_sections(lines):
+    """The pipeline's output cut at its '=== title ===' lines: {stage:
+    [(t, line)]}, the scene's stage named 'scene'."""
+    from hairgs_tpu_torch.drivers.pipeline import TITLES
+
+    names = {f"=== {t} ===": s for s, t in TITLES.items()}
+    out, cur = {}, None
+    for t, line in lines:
+        if line.startswith("=== Generating"):
+            cur = "scene"
+        elif line in names:
+            cur = names[line]
+        if cur is not None:
+            out.setdefault(cur, []).append((t, line))
+    return out
+
+
+def metric_table(lines):
+    """(metrics {name: [value per threshold]}, thresholds) of the last table
+    printed by format_metric_table."""
+    metrics, ths = {}, None
+    for _, line in lines:
+        if "m&" in line and line.startswith(" "):
+            ths, metrics = line.split(), {}
+        elif ths and (m := re.match(r"^(\S+\(b\)|\S+)\s+((?:-?[\d.]+\s*){%d})$" % len(ths),
+                                    line)):
+            metrics[m.group(1)] = [float(x) for x in m.group(2).split()]
+    return metrics, ths
+
+
+def parse_train(sec):
+    """A train stage's printed record: events, resets, progress points,
+    evaluations, overflow warnings, controller changes, launches, it/s."""
+    r = dict(events=[], resets=[], progress=[], evals={}, images={}, warns=[],
+             raster=[], launches=None, completed=None, start=None)
+    for t, line in sec:
+        if (m := re.match(r"^\[densify\] iter (\d+): (\{.*\}) -> (\d+) (\w+)"
+                          r"(?:, (\d+) strands)? in ([\d.]+) ms$", line)):
+            r["events"].append(dict(it=int(m.group(1)), info=literal(m.group(2)),
+                                    size=int(m.group(3)), strands=m.group(5) and
+                                    int(m.group(5)), ms=float(m.group(6))))
+        elif (m := re.match(r"^\[densify\] iter (\d+): opacity reset$", line)):
+            r["resets"].append(int(m.group(1)))
+        elif (m := re.match(r"^iter\s+(\d+)\s+loss ([\d.]+)\s+psnr ([-\d.]+)\s+prims (\d+)",
+                            line)):
+            r["progress"].append((int(m.group(1)), t, float(m.group(2)), int(m.group(4))))
+        elif (m := re.match(r"^\[eval\] iter (\d+): (\d+) (\w+)(?:, (\d+) strands)?; "
+                            r"strands at (\S+) \((\w+)\): (.*)$", line)):
+            vals = dict(zip(m.group(7).split()[::2], map(float, m.group(7).split()[1::2])))
+            r["evals"][int(m.group(1))] = dict(size=int(m.group(2)), unit=m.group(3),
+                                               strands=m.group(4) and int(m.group(4)),
+                                               on=m.group(6), **vals)
+        elif (m := re.match(r"^\[eval\] iter (\d+): (psnr .*)$", line)):
+            p = m.group(2).split()
+            r["images"][int(m.group(1))] = dict(zip(p[::2], map(float, p[1::2])))
+        elif (m := re.match(r"^\[warn\] iter (\d+): \d+ binning overflows \((\d+) "
+                            r"pair-budget, (\d+) tile-cap, (\d+) capacity\)", line)):
+            r["warns"].append(tuple(int(g) for g in m.groups()))
+        elif (m := re.match(r"^\[raster\] iter (\d+): (.*)$", line)):
+            r["raster"].append((int(m.group(1)), m.group(2)))
+        elif (m := re.match(r"^\[kernels\] rank 0 launches (\{.*\})$", line)):
+            r["launches"] = literal(m.group(1))
+        elif (m := re.match(r"^Training completed in ([\d.]+)s \(([\d.]+) it/s", line)):
+            r["completed"] = (float(m.group(1)), float(m.group(2)))
+        elif (m := re.match(r"^Loaded (\w+) from PLY at iteration (\d+)", line)):
+            r["start"] = int(m.group(2))
+    return r
+
+
+def stretch_rates(progress, stretch):
+    """it/s over each stretch of `stretch` iterations, from the host clock
+    of the progress lines (one per 100 iterations, each after a sync)."""
+    out = []
+    pts = {it: t for it, t, _, _ in progress}
+    its = sorted(pts)
+    for lo in range(0, its[-1] if its else 0, stretch):
+        a = min((i for i in its if i >= max(lo, its[0])), default=None)
+        b = max((i for i in its if i <= lo + stretch), default=None)
+        if a is not None and b is not None and b > a:
+            out.append((a, b, (b - a) / (pts[b] - pts[a])))
+    return out
+
+
+def report_train(what, r, n_steps, views, evals_expected, full_window):
+    """Print a train stage's record and fail() on a broken one; returns its
+    summary."""
+    start = r["start"] or 0
+    if r["completed"] is None:
+        fail(f"phase 15: {what} did not complete")
+    events = [e for e in r["events"]]
+    print(f"  {what}: {n_steps} iterations from {start} in {r['completed'][0]:.1f} s "
+          f"({r['completed'][1]:.2f} it/s over the run); {len(events)} topology events, "
+          f"opacity resets at {r['resets']}")
+    rates = stretch_rates(r["progress"], P15_STRETCH)
+    print("  it/s per stretch (host clock between the 100-iteration prints): "
+          + ", ".join(f"{a}-{b} {x:.2f}" for a, b, x in rates))
+    for it, e in sorted(r["evals"].items()):
+        img = r["images"].get(it, {})
+        print(f"  evaluation at {it}: {e['size']} {e['unit']}"
+              f"{'' if not e['strands'] else ', %d strands' % e['strands']}; strands "
+              f"({e['on']}) " + ", ".join(f"{k} {e[k]:.4f}" for k in e
+                                        if k.endswith("(b)"))
+              + ("; " + ", ".join(f"{k} {v:.3f}" for k, v in img.items()) if img else ""))
+    warns = r["warns"]
+    print(f"  pair-table overflows at the syncs: {len(warns)} syncs with any, "
+          f"{sum(w[1] for w in warns)} pair-budget, {sum(w[2] for w in warns)} tile-cap, "
+          f"{sum(w[3] for w in warns)} capacity; controller changes {r['raster']}")
+    print(f"  launches {r['launches']}")
+    la = r["launches"] or {}
+    fwd, bwd = la.get("composite_fwd", 0), la.get("composite_bwd", 0)
+    nostats = la.get("composite_bwd_nostats", 0)
+    if fwd != n_steps + views * evals_expected or bwd + nostats != n_steps:
+        fail(f"phase 15: {what} expected {n_steps + views * evals_expected} forward and "
+             f"{n_steps} backward launches, got {la}")
+    if full_window and nostats == 0:
+        fail(f"phase 15: {what} ran no backward without stats after the window closed")
+    if not all(np.isfinite(p[2]) for p in r["progress"]):
+        fail(f"phase 15: {what} printed a non-finite loss")
+    return dict(start=start, steps=n_steps, seconds=r["completed"][0],
+                it_per_s=r["completed"][1], stretches=rates, events=len(events),
+                resets=r["resets"], evals=r["evals"], images=r["images"],
+                overflow_syncs=len(warns), launches=la,
+                peak_size=max((e["size"] for e in events), default=None))
+
+
+def checkpoint_resumes(data, dirs, tmp):
+    """Phase 15, step 3: npz checkpoints on the card, the Gaussian model's
+    (save_checkpoint / load_checkpoint) from the Stage-I PLY and the hair
+    model's (save_checkpoint / restore) from the merged PLY: three train
+    steps, a checkpoint, a new model restored from it holding every array
+    of capture() bit-equal, and the next three steps from both with the
+    first one's loss bit-equal (the largest parameter difference after the
+    three is printed)."""
+    import os
+    import random
+    from argparse import Namespace
+
+    from hairgs_tpu_torch.config import OptimizationConfig
+    from hairgs_tpu_torch.models.gaussian import GaussianModel
+    from hairgs_tpu_torch.models.hair import HairModel
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.scene import Scene
+    from hairgs_tpu_torch.topo.strands import smooth_pair_indices
+    from hairgs_tpu_torch.train.trainer import (
+        make_gaussian_train_step,
+        make_hair_train_step,
+    )
+
+    op = OptimizationConfig()
+    cfg = RasterConfig(max_tiles_per_gaussian=64, max_pairs_per_tile=2048, chunk=128,
+                       use_pallas=True)
+    out = {}
+    for what, path in dirs.items():
+        random.seed(0)
+        scene = Scene(Namespace(source_path=data, model_path=path, images="images",
+                                resolution=-1, sh_degree=0, data_device="cuda",
+                                eval=False), shuffle=False, capacity_round=65536)
+        cams, m = scene.get_cameras(), scene.gaussians
+        m.training_setup(op)
+        hair = isinstance(m, HairModel)
+        common = dict(width=cams[0].width, height=cams[0].height,
+                      active_sh_degree=m.active_sh_degree,
+                      spatial_lr_scale=m.spatial_lr_scale, device="cuda")
+        if hair:
+            sp, sv = (torch.tensor(a.astype(np.int64) if a.dtype != np.bool_ else a,
+                                   device="cuda")
+                      for a in smooth_pair_indices(m.strands_info))
+            step = make_hair_train_step(
+                op, cfg, dist_to_scale_factor=m.dist_to_scale_factor, **common)
+
+            def run(model, i):
+                *state, metrics, _ = step(model.params, model.graph, model.stats,
+                                          model.opt_state, cams[i], i, sp, sv)
+                model.params, model.stats, model.opt_state = state
+                return metrics["loss"].item()
+        else:
+            step = make_gaussian_train_step(op, cfg, **common)
+
+            def run(model, i):
+                *state, metrics, _ = step(model.params, model.stats, model.opt_state,
+                                          model.active, cams[i], i)
+                model.params, model.stats, model.opt_state = state
+                return metrics["loss"].item()
+        for i in range(1, 4):
+            run(m, i)
+        ck = f"{tmp}/{what}.npz"
+        m.save_checkpoint(ck)
+        again = (HairModel if hair else GaussianModel)(
+            sh_degree=0, spatial_lr_scale=m.spatial_lr_scale, capacity_round=65536,
+            device="cuda")
+        if hair:
+            again.restore(dict(np.load(ck)))
+        else:
+            again.load_checkpoint(ck)
+        again.training_setup(op)
+        a, b = m.capture(), again.capture()
+        # every array bit-equal; the 0-d scalars (step, SH degree, the
+        # spatial scale, a Python float once restored) equal in value
+        differ = sorted(set(a) ^ set(b)) + [
+            f"{k} ({a[k].dtype}{list(a[k].shape)}, {b[k].dtype}{list(b[k].shape)}, "
+            f"NaN {int(np.isnan(a[k]).sum()) if a[k].dtype.kind == 'f' else 0})"
+            for k in sorted(set(a) & set(b))
+            if not ((a[k].dtype == b[k].dtype or a[k].ndim == 0) and np.array_equal(
+                a[k], b[k], equal_nan=a[k].dtype.kind == "f"))]
+        same = not differ
+        la = [run(m, i) for i in range(4, 7)]
+        lb = [run(again, i) for i in range(4, 7)]
+        diff = max((x - y).abs().max().item() for x, y in zip(m.params, again.params)
+                   if x.numel())
+        size = m.num_segments if hair else m.count
+        print(f"  {what} checkpoint ({size} rows, {len(a)} arrays, "
+              f"{os.path.getsize(ck) / 2**20:.1f} MiB): restored state bit-equal {same}"
+              f"{'' if same else ' (differ: %s)' % differ}; "
+              f"resumed losses {la} against {lb}; largest parameter difference after "
+              f"three steps {diff:.3e}")
+        if not same or la[0] != lb[0]:
+            fail(f"phase 15: the {what} checkpoint is not a bit-equal resume")
+        out[what] = dict(rows=size, state_equal=same, losses=(la, lb), param_diff=diff)
+        del scene, m, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def p15_logs():
+    """Phase 15's log directory: $CHIP_SMOKE_LOGS, or _runs/phase15 of the
+    checkout (git-ignored)."""
+    import os
+
+    logs = os.environ.get("CHIP_SMOKE_LOGS") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_runs", "phase15")
+    os.makedirs(logs, exist_ok=True)
+    return logs
+
+
+def p15_pipeline_cmd(tmp, argv, dst=None):
+    return [sys.executable, "-m", "hairgs_tpu_torch.drivers.pipeline", "-s",
+            f"{tmp}/syn150/data", "-m", dst or f"{tmp}/syn150/model", *argv]
+
+
+def start_phase15(tmp, n1):
+    """Phase 15, step 1 started in the background: the pipeline writes the
+    scene, runs Stage I for n1 iterations and the merge."""
+    return Stamped(p15_pipeline_cmd(tmp, ["--synthetic", "--stages", "stage1,merge",
+                                          *P15_COMMON, "--iterations", str(n1)]),
+                   f"{p15_logs()}/stage1_merge.log", 300 + 0.15 * n1)
+
+
+def launch_line(lines):
+    """The launch counts a child printed ("[kernels] launches {...}")."""
+    return next((literal(line.split(" ", 2)[2]) for line in lines
+                 if line.startswith("[kernels] launches")), {})
+
+
+def report_scene(lines):
+    """Print the reference scene's record and fail() unless it is the
+    reference scene with no GT render dropping a pair; returns the GT
+    renders' launches."""
+    lines = [line for _, line in lines]
+    m = next(re.match(r"^dataset done: \S+ (\d+) GT segments; worst over (\d+) "
+                      r"views (\{.*\})$", line)
+             for line in lines if line.startswith("dataset done"))
+    launches = launch_line(lines)
+    worst = literal(m.group(3))
+    print(f"  scene: {m.group(1)} GT segments, {m.group(2)} views at 512x512; worst "
+          f"over the views {worst}; launches {launches}")
+    if int(m.group(1)) != P15_SEGMENTS or int(m.group(2)) != P15_VIEWS:
+        fail(f"phase 15: the scene is not the reference scene: {m.groups()}")
+    if worst["overflow_pairs"] or worst["overflow_tiles"] or worst["overflow_capacity"]:
+        fail(f"phase 15: a GT render dropped pairs: {worst}")
+    if launches.get("composite_fwd") != P15_VIEWS:
+        fail(f"phase 15: the GT renders did not run the forward kernel: {launches}")
+    return launches
+
+
+def report_merge(lines):
+    """Print the merge stage's record (iterations, seconds, strands, the
+    metric table) and fail() if it merged nothing; returns (summary,
+    metrics, thresholds)."""
+    rows = [re.match(r"^merge iter (\d+): merged (\d+) endpoint pairs -> (\d+) segments, "
+                     r"(\d+) strands \(([\d.]+) s, candidates ([\d.]+) s\)", line)
+            for _, line in lines]
+    rows = [tuple(float(g) for g in r.groups()) for r in rows if r]
+    metrics, ths = metric_table(lines)
+    conv, conv_strands = next((int(x.group(1)), int(x.group(2))) for _, line in lines
+                              if (x := re.match(r"^Converted to hair model: (\d+) "
+                                                r"segments, (\d+) strands", line)))
+    iters = next(int(x.group(1)) for _, line in lines
+                 if (x := re.match(r"^Merging converged after (\d+) iterations", line)))
+    strands = int(rows[-1][3]) if rows else conv_strands
+    print(f"  merge: {conv} segments in {conv_strands} strands converted, {iters} "
+          f"iterations, {sum(r[4] for r in rows):.1f} s (s per iteration "
+          f"{[r[4] for r in rows]}, of it the candidate search {[r[5] for r in rows]}), "
+          f"{strands} strands left (JAX {JAX_MERGED['strands']})")
+    for k, v in metrics.items():
+        print(f"    {k:<22} " + "  ".join(f"{t} {x:.4f}" for t, x in zip(ths, v)))
+    if not rows:
+        fail("phase 15: the merge merged nothing")
+    return dict(converted=conv, iterations=iters, strands=strands,
+                seconds=sum(r[4] for r in rows), metrics=metrics, thresholds=ths), \
+        metrics, ths
+
+
+def report_trajectory(secs, merged_it):
+    """Print Stage III's run at the reference schedule (cut at its time
+    limit or not): the iteration reached, each evaluation, the densify peak,
+    each topology phase's seconds, the segments every 1000 iterations and
+    the it/s per stretch; returns them."""
+    s3 = parse_train(secs.get("stage3", []))
+    reached = max([p[0] for p in s3["progress"]], default=0)
+    print(f"  Stage III reference schedule: reached iteration {reached} of 30000 "
+          f"(from {merged_it})")
+    for it, e in sorted(s3["evals"].items()):
+        print(f"    evaluation at {it}: {e}")
+    peak = max(s3["events"], key=lambda e: e["size"], default=None)
+    if peak:
+        print(f"    densify peak {peak['size']} segments at {peak['it']}")
+    phases = {}
+    for e in s3["events"]:
+        for k, v in e["info"].items():
+            if k.startswith("t_"):
+                phases.setdefault(k, []).append(v)
+    print(f"    event seconds by phase (mean, max over {len(s3['events'])} events): "
+          + ", ".join(f"{k} {np.mean(v):.3f} {np.max(v):.3f}" for k, v in phases.items()))
+    sizes = [(p[0], p[3]) for p in s3["progress"] if p[0] % 1000 == 0]
+    print(f"    segments every 1000 iterations: {sizes}")
+    rates = stretch_rates(s3["progress"], P15_STRETCH)
+    print("    it/s per stretch: " + ", ".join(f"{a}-{b} {x:.2f}" for a, b, x in rates))
+    return dict(reached=reached, evals=s3["evals"],
+                peak=peak and (peak["size"], peak["it"]),
+                phases={k: (float(np.mean(v)), float(np.max(v)))
+                        for k, v in phases.items()},
+                sizes=sizes, stretches=rates, completed=s3["completed"],
+                eval=metric_table(secs.get("eval", []))[0])
+
+
+def reference_pipeline(tmp, n1, full_stage3_s=0, started=None):
+    """Phase 15: run_reference_schedule.sh through drivers/pipeline.py on
+    its seed-0 scene (150 strands x 24 points, 16 views at 512x512, written
+    on the card): Stage I for `n1` iterations of the reference schedule and
+    the merge; the eval driver on the merged PLY against the merge's own
+    evaluation; the npz checkpoints of both models and the merge driver's
+    --clean; the first P15_STAGE3 iterations of Stage III and the eval
+    driver on its last PLY. At n1 = 30000 the merged model is held to the
+    JAX chain's quality (P15_GATES); with `full_stage3_s` (a function
+    returning the seconds left) the whole Stage III schedule then runs from
+    a copy of the merged model for at most that long. `started`: step 1 as
+    start_phase15 started it.
+    Logs under p15_logs(). Returns a record."""
+    import os
+
+    logs = p15_logs()
+    data, model = f"{tmp}/syn150/data", f"{tmp}/syn150/model"
+    rec = dict(stage1_iterations=n1, stage1_beside_phases_11_14=started is not None)
+
+    def pipe(name, argv=None, timeout=None, dst=model, may_stop=False, run=None):
+        run = run or Stamped(p15_pipeline_cmd(tmp, argv, dst), f"{logs}/{name}.log",
+                             timeout)
+        rc, lines = run.wait()
+        print(f"  [{name}] {' '.join(run.cmd[3:])}: exit {rc} after {run.seconds:.1f} s")
+        if rc != 0 and not may_stop:
+            print("\n".join(line for _, line in lines[-40:]))
+            fail(f"phase 15: the pipeline run {name} failed ({rc})")
+        return pipeline_sections(lines)
+
+    # step 1: the scene, Stage I and the merge
+    secs = pipe("stage1_merge", run=started or start_phase15(tmp, n1))
+    gt_launches = report_scene(secs["scene"])
+    s1 = parse_train(secs["stage1"])
+    n_evals1 = -(-n1 // 10000)
+    rec["stage1"] = report_train("Stage I", s1, n1, P15_VIEWS, n_evals1, n1 >= 27000)
+    want_events = len([i for i in range(600, min(n1, 26999) + 1, 100)])
+    want_resets = [i for i in range(3000, min(n1, 26999) + 1, 3000)]
+    if rec["stage1"]["events"] != want_events or s1["resets"] != want_resets:
+        fail(f"phase 15: Stage I ran {rec['stage1']['events']} densify events and "
+             f"resets {s1['resets']}, expected {want_events} and {want_resets}")
+    for i in sorted({0, 1, 2, len(s1["events"]) - 2, len(s1["events"]) - 1}):
+        if not 0 <= i < len(s1["events"]):
+            continue
+        e, d = s1["events"][i], s1["events"][i]["info"]
+        print(f"    densify at {e['it']}: {e['ms']:.1f} ms, clone {d.get('clone')} split "
+              f"{d.get('split')} prune {d.get('prune_total')} -> {e['size']}")
+    final1 = rec["stage1"]["images"][n1]
+    rec["stage1"]["final"] = dict(final1, count=rec["stage1"]["evals"][n1]["size"])
+
+    rec["merge"], merged, ths = report_merge(secs["merge"])
+    strands = rec["merge"]["strands"]
+    merged_it = n1 + max(rec["merge"]["iterations"], 1)  # the merge driver's save
+
+    # step 2: the eval driver on the merged PLY (the pipeline's eval stage
+    # takes the last checkpoint)
+    secs = pipe("eval_merged", ["--stages", "eval"], 900)
+    got, _ = metric_table(secs["eval"])
+    eval_launches = [launch_line([line for _, line in secs["eval"]])]
+    print(f"  eval driver on iteration {merged_it}: equal to the merge's evaluation "
+          f"{got == merged}")
+    if got != merged:
+        fail(f"phase 15: the eval driver's metrics {got} differ from the merge's {merged}")
+
+    # the gates against the JAX chain at the full Stage I
+    at = {k: v[-1] for k, v in merged.items()}
+    comp = {k: (at[k], JAX_MERGED[k]) for k in P15_GATES}
+    comp["strands"] = (strands, JAX_MERGED["strands"])
+    comp["stage1_psnr"] = (final1["psnr"], JAX_STAGE1_PSNR)
+    print(f"  against the JAX chain at {ths[-1]} (port, JAX): {comp}; Stage I ssim "
+          f"{final1.get('ssim')}, masked_psnr {final1.get('masked_psnr')} (JAX at 30000: "
+          f"0.932, 8.67)")
+    misses = [k for k, lim in P15_GATES.items() if abs(at[k] - JAX_MERGED[k]) > lim]
+    if abs(strands - JAX_MERGED["strands"]) > P15_STRANDS_REL * JAX_MERGED["strands"]:
+        misses.append("strands")
+    if final1["psnr"] < P15_PSNR_MIN:
+        misses.append("stage1_psnr")
+    rec["against_jax"] = dict(values=comp, misses=misses, gated=n1 == P15_FULL)
+    print(f"  gates {'held' if not misses else 'missed: ' + str(misses)}"
+          f"{'' if n1 == P15_FULL else ' (reported only: Stage I cut to %d)' % n1}")
+    if n1 == P15_FULL and misses:
+        rec["gate_fail"] = misses
+    if full_stage3_s:
+        shutil.copytree(model, f"{model}_full3")
+        # the scene and the Stage-I and merged PLYs, for CPU comparisons
+        keep = os.path.join(logs, "syn150")
+        shutil.rmtree(keep, ignore_errors=True)
+        shutil.copytree(data, f"{keep}/data")
+        for it in (n1, merged_it):
+            shutil.copytree(f"{model}/point_cloud/iteration_{it}",
+                            f"{keep}/model/point_cloud/iteration_{it}")
+
+    # step 3: the npz checkpoints of both models and the merge's --clean
+    clean = f"{tmp}/syn150/clean"
+    os.makedirs(f"{clean}/point_cloud")
+    shutil.copytree(f"{model}/point_cloud/iteration_{n1}",
+                    f"{clean}/point_cloud/iteration_{n1}")
+    rec["checkpoints"] = checkpoint_resumes(data, {"gaussian": clean, "hair": model}, tmp)
+    cmd = [sys.executable, "-m", "hairgs_tpu_torch.drivers.merge", "-s", data, "-m", clean,
+           "--clean"]
+    rc, lines = run_stamped(cmd, f"{logs}/merge_clean.log", 900)
+    cleaned = next((int(x.group(1)) for _, line in lines
+                    if (x := re.match(r"^Cleaned to (\d+) foreground", line))), None)
+    c_iters = next((int(x.group(1)) for _, line in lines
+                    if (x := re.match(r"^Merging converged after (\d+)", line))), None)
+    c_metrics, _ = metric_table(lines)
+    print(f"  merge --clean: exit {rc}; {cleaned} of {rec['stage1']['final']['count']} "
+          f"Gaussians kept, {c_iters} iterations; f1(b) at {ths[-1]} "
+          f"{c_metrics.get('f1(b)', [None])[-1]} (without --clean {at['f1(b)']:.4f})")
+    if rc != 0 or not cleaned or cleaned > rec["stage1"]["final"]["count"] or not c_metrics:
+        fail("phase 15: the merge driver's --clean failed")
+    rec["clean"] = dict(kept=cleaned, iterations=c_iters, metrics=c_metrics)
+
+    # step 4: Stage III's first iterations and the eval driver on its last PLY
+    secs = pipe("stage3_eval", ["--stages", "stage3,eval", *P15_COMMON,
+                                "--iterations", str(P15_STAGE3)], 900)
+    s3 = parse_train(secs["stage3"])
+    rec["stage3"] = report_train("Stage III", s3, P15_STAGE3, P15_VIEWS, 1, False)
+    if s3["start"] != merged_it:
+        fail(f"phase 15: Stage III started from {s3['start']}, not {merged_it}")
+    kinds = {k: sum(1 for e in s3["events"] if k in e["info"]) for k in ("clone", "merge")}
+    end = s3["evals"][merged_it + P15_STAGE3]
+    print(f"  Stage III events {kinds}; at {merged_it + P15_STAGE3}: f1(b) "
+          f"{end['f1(b)']:.4f}, recall(b) {end['recall(b)']:.4f}, precision(b) "
+          f"{end['precision(b)']:.4f} (JAX after its first 1000: f1 {JAX_III_1K['f1(b)']}, "
+          f"recall {JAX_III_1K['recall(b)']}; reported, not gated)")
+    for e in [s3["events"][i] for i in sorted({0, len(s3["events"]) - 1})
+              if s3["events"]]:
+        print(f"    event at {e['it']}: {e['ms']:.1f} ms "
+              + str({k: v for k, v in e["info"].items() if k.startswith("t_")})
+              + f" -> {e['size']} segments, {e['strands']} strands")
+    ev, _ = metric_table(secs["eval"])
+    eval_launches.append(launch_line([line for _, line in secs["eval"]]))
+    last = {k: round(v[-1], 4) for k, v in ev.items() if k in end}
+    print(f"  eval driver on iteration {merged_it + P15_STAGE3}: {last}, Stage III's "
+          f"final evaluation {({k: end[k] for k in last})}")
+    if kinds["clone"] < 1 or kinds["merge"] < 1 or \
+            any(end[k] != v for k, v in last.items()):
+        fail("phase 15: Stage III missed an event, or the eval driver disagrees with "
+             "its final evaluation")
+    rec["stage3"]["events_by_kind"] = kinds
+    runs = [gt_launches, rec["stage1"]["launches"], rec["stage3"]["launches"],
+            *eval_launches]
+    rec["launches"] = {k: sum(r.get(k, 0) for r in runs)
+                       for k in ("composite_fwd", "composite_bwd", "composite_bwd_nostats")}
+    print(f"  launches over phase 15's children (scene, Stage I, two evaluations, "
+          f"Stage III): {rec['launches']}")
+    if any(v == 0 for k, v in rec["launches"].items()
+           if k != "composite_bwd_nostats" or n1 >= 27000):
+        fail(f"phase 15: a kernel of the path was never launched: {rec['launches']}")
+
+    if full_stage3_s:
+        secs = pipe("stage3_full", ["--stages", "stage3,eval", *P15_COMMON],
+                    max(60.0, full_stage3_s()), dst=f"{model}_full3", may_stop=True)
+        rec["stage3_full"] = report_trajectory(secs, merged_it)
+    return rec
+
+
+def phase15_alone(n1, budget_s):
+    """`python3 chip_smoke.py --phase15 N [S]`: build the kernels and run
+    phase 15 alone with N Stage-I iterations (30000: the whole reference
+    schedule, held to the JAX chain's gates) and, with S > 0, the whole
+    Stage-III schedule afterwards until S seconds after the start (less a
+    minute for the rest)."""
+    from hairgs_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    for name, r in kernels.build().items():
+        print(f"  {name}: built in {r['seconds']:.1f} s")
+    smi = smi_line()
+    print(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p15_") as tmp:
+        rec = reference_pipeline(tmp, n1, budget_s and (
+            lambda: budget_s - 60 - (time.perf_counter() - t0)))
+    print(f"  total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"phase15": rec}, default=str))
+    print(smi)
+    if rec.get("gate_fail"):
+        fail(f"phase 15: the port misses the JAX chain's quality: {rec['gate_fail']}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -2421,6 +3073,8 @@ def main():
         return rank_main(*sys.argv[2:4])
     if sys.argv[1:2] == ["--slab-oracle"]:
         return slab_oracle_driver(int(sys.argv[2]), sys.argv[3:])
+    if sys.argv[1:2] == ["--phase15"]:
+        return phase15_alone(int(sys.argv[2]), float(sys.argv[3]) if sys.argv[3:] else 0)
     from hairgs_tpu_torch import kernels
     from hairgs_tpu_torch.bench_scene import build_bench_scene
     from hairgs_tpu_torch.core.camera import stack_cameras
@@ -2663,7 +3317,17 @@ def main():
 
     print("phase 10: precision probe")
     probe_entry = check_probe(device)
+    probe_device_ms = probe_entry.pop("device_ms")
     print(f"  phases 7-10: {time.perf_counter() - t_phase:.1f} s")
+
+    # phase 15's scene, Stage I and merge run as children beside phases
+    # 11-14 (the whole script would not fit its time limit otherwise); the
+    # kernel times of the kernels line are taken before, but for phase 13's
+    # C = 3 forward, during which the children are stopped
+    p15_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_p15_")
+    p15_run = start_phase15(p15_dir.name, P15_STAGE1)
+    print(f"phase 15 started: the scene, Stage I ({P15_STAGE1} of {P15_FULL} "
+          f"iterations) and the merge through drivers/pipeline.py, beside phases 11-14")
 
     # phase 12 continues from phase 11's capture and model directory
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_stages_")
@@ -2694,7 +3358,11 @@ def main():
     synced = [r for r in keep3["record"].rows if r["loss"] is not None]
     phase13["async_stage3"] = async_stage3(
         tmp, dict(stage3, rows=keep3["record"].rows, loss_last=synced[-1]["loss"]), smi)
+    # the render driver's kernel times (the kernels line's C = 3 entry)
+    # without phase 15's Stage I on the card
+    p15_run.pause()
     phase13["render_driver"] = render_driver_check(tmp, keep3, smi)
+    p15_run.pause(False)
     phase13["gabor"] = gabor_check(tmp, keep1, smi)
     phase13["usc_parse"] = usc_parse_check(tmp, smi)
     phase13["grid"] = grid_check(keep3)
@@ -2710,6 +3378,16 @@ def main():
     phase14 = parallel_paths(scene, cfg, tmp, f"{tmp}/model_merged", final_ply)
     tmp_dir.cleanup()
     print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+
+    print(f"phase 15: the reference pipeline through drivers/pipeline.py (Stage I "
+          f"{P15_STAGE1} of {P15_FULL} iterations)")
+    t_phase = time.perf_counter()
+    del scene
+    torch.cuda.empty_cache()
+    phase15 = reference_pipeline(p15_dir.name, P15_STAGE1, started=p15_run)
+    p15_dir.cleanup()
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s after phase 14, "
+          f"{p15_run.seconds:.1f} s of step 1 beside phases 11-14")
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -2747,7 +3425,9 @@ def main():
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
                       "stage1_driver": stage1, "stage2_merge": stage2,
                       "stage3_driver": stage3, "phase13": phase13,
-                      "phase14": phase14, "card": smi}, default=str))
+                      "phase14": phase14, "phase15": phase15,
+                      "probe_device_ms": probe_device_ms, "card": smi},
+                     default=str))
     print(json.dumps(kernels_line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,3 +23,13 @@ def expon_lr(step, lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
     log_lerp = torch.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
     lr = delay_rate * log_lerp
     return torch.where(step < 0, torch.zeros_like(lr), lr)
+
+
+def make_expon_lr_fn(lr_init, lr_final, lr_delay_steps=0, lr_delay_mult=1.0,
+                     max_steps=1000000):
+    """expon_lr with its schedule bound: a function of the step."""
+    def fn(step):
+        return expon_lr(step, lr_init, lr_final, lr_delay_steps, lr_delay_mult,
+                        max_steps)
+
+    return fn

@@ -72,6 +72,10 @@ def main(argv=None):
         im = evaluate_image_metrics(scene.gaussians, scene.get_cameras(), config=cfg)
         print("image metrics (train views): "
               + "  ".join(f"{k} {v:.3f}" for k, v in im.items()))
+        if scene.device.type == "cuda":
+            from hairgs_tpu_torch.render.composite_pairs import launches
+
+            print(f"[kernels] launches {launches}")
     return metrics
 
 

@@ -96,7 +96,8 @@ def main(args):
         viz_cb = make_merge_viz_callback(hair)
     converted = (hair.num_segments, hair.num_endpoints,
                  len(hair.strands_info.list_strands))
-    print(f"Converted to hair model: {hair.num_segments} segments")
+    print(f"Converted to hair model: {hair.num_segments} segments, "
+          f"{converted[2]} strands")
 
     rows = []
 

@@ -826,6 +826,15 @@ def training(mp, op, gp, rt, args, logger=None):
             if scene.gt is not None:
                 info.eval_metrics, info.eval_thresholds = run_eval(
                     final=iteration >= op.iterations)
+                if info.eval_metrics is not None and not gp.quiet:
+                    size = (f"{model.num_segments} segments, "
+                            f"{len(model.strands_info.list_strands)} strands"
+                            if is_hair else f"{model.count} Gaussians")
+                    where = "device" if info.eval_on_device else "host"
+                    parts = "  ".join(f"{k} {float(v[-1]):.4f}"
+                                      for k, v in info.eval_metrics.items())
+                    print(f"[eval] iter {info.iter}: {size}; strands at "
+                          f"{info.eval_thresholds[-1]} ({where}): {parts}")
             run_image_eval()
         else:
             info.image_metrics = None

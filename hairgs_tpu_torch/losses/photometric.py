@@ -13,6 +13,10 @@ def l1_loss(a, b):
     return torch.mean(torch.abs(a - b))
 
 
+def l2_loss(a, b):
+    return torch.mean((a - b) ** 2)
+
+
 def psnr(a, b):
     """Peak signal-to-noise ratio in dB for [0,1]-range images."""
     mse = torch.mean((a - b) ** 2)
@@ -66,3 +70,36 @@ def orientation_loss_from_channels(orient_world, camera):
         sel = torch.any(orient_world != 0.0, dim=-1).to(weighted.dtype)
     denom = torch.clamp(torch.sum(sel), min=1.0)
     return torch.sum(weighted * sel) / denom
+
+
+def compute_losses(channels, camera, opt_cfg, extra_losses=None):
+    """The composite training loss (reference loss_function,
+    loss/losses.py:319-355) of a fused render (H, W, 7): l1 and D-SSIM on
+    the RGB channels, the mask and orientation terms where the camera has
+    their targets, and the precomputed strand terms of `extra_losses`
+    ({"smooth": x, "magnet": y}) with their lambdas. Returns (loss,
+    loss_dict). The train steps add the same terms with the photometric part
+    kept apart (train/trainer.py), since only it feeds the densification
+    statistics."""
+    from hairgs_tpu_torch.models.gaussian import MASK, ORIENT, RGB
+    from hairgs_tpu_torch.ops.ssim import ssim
+
+    image = channels[..., RGB]
+    gt = camera.image
+    loss_dict = {"l1": l1_loss(image, gt)}
+    loss = max(0.0, 1.0 - opt_cfg.lambda_dssim) * loss_dict["l1"]
+    loss_dict["dssim"] = 1.0 - ssim(image, gt)
+    loss = loss + opt_cfg.lambda_dssim * loss_dict["dssim"]
+    if opt_cfg.lambda_mask > 0 and camera.mask is not None:
+        loss_dict["mask"] = mask_loss_from_channel(channels[..., MASK], camera.mask)
+        loss = loss + opt_cfg.lambda_mask * loss_dict["mask"]
+    if opt_cfg.lambda_orientation > 0 and camera.orientation is not None:
+        loss_dict["orientation"] = orientation_loss_from_channels(
+            channels[..., ORIENT], camera)
+        loss = loss + opt_cfg.lambda_orientation * loss_dict["orientation"]
+    for name, value in (extra_losses or {}).items():
+        lam = getattr(opt_cfg, f"lambda_{name}")
+        if lam > 0:
+            loss_dict[name] = value
+            loss = loss + lam * value
+    return loss, loss_dict

@@ -44,9 +44,9 @@ def test_port_imports_nothing_of_jax():
                  "drivers.parse_usc_hairsalon", "data.vision", "data.usc",
                  "data.head", "data.cy", "data.flame", "visualization",
                  "network_gui", "parallel", "parallel.mesh", "parallel.slab",
-                 "parallel.multihost", "drivers.convert_output"):
+                 "parallel.multihost", "drivers.convert_output", "drivers.pipeline"):
         assert f"hairgs_tpu_torch.{name}" in report["modules"], name
-    assert len(report["modules"]) >= 71
+    assert len(report["modules"]) >= 72
     assert report["foreign"] == []
     assert report["tf32"] is False
     assert report["cudnn_tf32"] is False
