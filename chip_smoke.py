@@ -58,17 +58,33 @@ process (`--rank-case`, or torchrun's) with its own timeout; 15 the
 reference pipeline of scripts/run_reference_schedule.sh through
 `drivers/pipeline.py`, each stage a child process, on its seed-0 scene (150
 strands x 24 points, 16 views at 512x512, written on the card, no GT render
-dropping a pair): the scene, the first 10 000 iterations of Stage I's
+dropping a pair): the scene, the first 5000 iterations of Stage I's
 reference schedule and the merge run beside phases 11-14 (the whole 30 000
 would not fit the time limit); then the eval driver on the merged PLY
-against the merge's own evaluation, the npz checkpoints of the Gaussian and
-the hair model as bit-equal resumes, the merge driver's `--clean`, Stage
-III's first 1000 iterations and the eval driver on its last PLY.
+against the merge's own evaluation, Stage II.5 (the grow driver and the
+eval driver on its output), the npz checkpoints of the Gaussian and the
+hair model as bit-equal resumes, the merge driver's `--clean`, Stage III's
+first 1000 iterations and the eval driver on its last PLY; 16 the 1000x1000
+recipe of scripts/run_reference_schedule_1k.sh through
+`drivers/pipeline.py --recipe 1k` beside phases 11-15 (the scene, Stage I's
+first 10 000 iterations under antialiasing at alpha_min 1e-5 with the frozen
+64-tile budget, the merge, Stage II.5 and its eval, Stage III's first 500
+with async topology events, the final eval, the growth of the final model
+and its eval), then (a) both compositor kernels (the backward with and
+without stats) against their plain versions at a 1000x1000 view of its
+Stage-I model under antialiasing at alpha_min 1e-5, with their times,
+passing pair-pixels, cull shares and bounds, (b) the antialiased step's
+gradients on the card against the CPU, (c) the grow driver on the card
+against the CPU, (d) each eval driver's metrics against those printed for
+the same checkpoint.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase15 30000 [S]   # phase 15 alone, the whole
     # Stage-I schedule held to the JAX chain's quality; with S, the whole
     # Stage-III schedule afterwards until S seconds after the start
+    python3 chip_smoke.py --phase16 30000 [S]   # phase 16 alone, the whole
+    # Stage-I schedule, then the whole Stage-III schedule until S seconds
+    # after the start; quality recorded, not gated
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -162,10 +178,11 @@ def ptxas_summary(report):
     return out
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds of fn() over reps launches, timed with CUDA events
-    after one warm-up call."""
-    fn()
+    after one warm-up call (none without `warm`)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -180,26 +197,33 @@ def cuda_ms(fn, reps):
 def compositor_inputs(scene, cam_idx, cfg):
     """(geo_rows, feat_rows, starts, counts, binning) of one bench view, as
     the train step builds them."""
+    return pair_table(scene.params, scene.active, scene.cams[cam_idx], scene.width,
+                      scene.height, cfg)
+
+
+def pair_table(params, active, cam, width, height, cfg, sh_degree=0):
+    """(geo_rows, feat_rows, starts, counts, binning) of a Gaussian model's
+    view, as the train step builds them."""
     from hairgs_tpu_torch.models.gaussian import gaussian_render_inputs
     from hairgs_tpu_torch.render.renderer import paged_pair_table
 
-    cam = scene.cams[cam_idx]
     with torch.no_grad():
-        inputs = gaussian_render_inputs(scene.params, cam.cam_center, 0)
+        inputs = gaussian_render_inputs(params, cam.cam_center, sh_degree)
         _, binning, geo, feat = paged_pair_table(
-            cam, **inputs, cov3d_precomp=None, active=scene.active,
-            mean2d_offset=None, scale_modifier=1.0, width=scene.width,
-            height=scene.height, config=cfg)
+            cam, **inputs, cov3d_precomp=None, active=active,
+            mean2d_offset=None, scale_modifier=1.0, width=width,
+            height=height, config=cfg)
     return geo, feat, binning.starts, binning.counts, binning
 
 
-def check_forward(name, geo, feat, starts, counts, grid_w, chunk, max_chunks, C):
+def check_forward(name, geo, feat, starts, counts, grid_w, chunk, max_chunks, C,
+                  alpha_min=1.0 / 255.0):
     """The forward kernel against its plain version: image, T, tstarts of
     the chunks that exist and the latch plane (bit for bit). Returns the
     image error and the kernel's (out, trans, tstarts, latch)."""
     from hairgs_tpu_torch.render import composite_pairs as cp
 
-    args = (geo, feat, starts, counts, grid_w, 16, chunk, max_chunks, C)
+    args = (geo, feat, starts, counts, grid_w, 16, chunk, max_chunks, C, alpha_min)
     k_out, k_t, k_ts, k_lat = cp.composite_pairs_fwd_cuda(*args)
     p_out, p_t, p_ts, p_lat = cp.composite_pairs_fwd_plain(*args)
     torch.cuda.synchronize()
@@ -240,7 +264,7 @@ def bwd_cotangents(nt, C, seed, device):
 
 
 def check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk,
-                   max_chunks, C, seed, plant_faults=False):
+                   max_chunks, C, seed, plant_faults=False, alpha_min=1.0 / 255.0):
     """Both gradient planes of the kernel against the plain version, with
     and without stats. With plant_faults, also shows that the gate fails
     two wrong gradients made from the plain version: one that drops the
@@ -255,7 +279,7 @@ def check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk,
     worst = 0.0
     for stats in (True, False):
         args = (geo, feat, starts, cnt, tstarts, latch, trans, g_out, g_photo,
-                g_trans, grid_w, 16, chunk, max_chunks, C, stats)
+                g_trans, grid_w, 16, chunk, max_chunks, C, stats, alpha_min)
         k_geo, k_feat = cp.composite_pairs_bwd_cuda(*args)
         p_geo, p_feat = cp.composite_pairs_bwd_plain(*args)
         torch.cuda.synchronize()
@@ -449,17 +473,20 @@ def fwd_bound_ms(counts, chunk, C, gates, feat_bytes=4):
     return bound_ms(bytes_, n_all * GATE_OPS + n_pass * (FWD_PASS_OPS - 7 + C))
 
 
-def bwd_bound_ms(cnt, chunk, C, gates, feat_bytes=4):
+def bwd_bound_ms(cnt, chunk, C, gates, feat_bytes=4, stats=True):
     """Bytes: reads geometry rows 0-5 and the C feature rows (feat_bytes
     each) of every pair the clamped counts keep, the tile tables, the start
     transmittance of every chunk that runs, T, the two image cotangents and
-    g_T; writes the 8 geometry and C feature gradients of those pairs (the
-    other slots are the wrapper's zero fill)."""
+    g_T; writes the 8 geometry (6 without stats) and C feature gradients of
+    those pairs (the other slots are the wrapper's zero fill). Without
+    stats a passing pair-pixel costs 4 operations less (two aux gradients
+    and their shares of the block sum)."""
     nt, pairs, chunks = table_sizes(cnt, chunk)
+    rows = 8 if stats else 6
     bytes_ = (4 * (pairs * 6 + 2 * nt + chunks * PIX + nt * PIX * (2 + 2 * C)
-                   + pairs * 8) + 2 * feat_bytes * pairs * C)
+                   + pairs * rows) + 2 * feat_bytes * pairs * C)
     n_all, n_pass = gates
-    return bound_ms(bytes_, n_all * GATE_OPS + n_pass * BWD_PASS_OPS)
+    return bound_ms(bytes_, n_all * GATE_OPS + n_pass * (BWD_PASS_OPS - 2 * (8 - rows)))
 
 
 def check_grads_against_cpu(cfg):
@@ -2455,10 +2482,11 @@ def parallel_paths(scene, cfg, tmp, merged_dir, final_ply):
 P15_COMMON = ["--max_tiles_per_gaussian", "64", "--capacity_round", "65536",
               "--eval_frequency", "10000"]  # run_reference_schedule.sh:29
 P15_FULL = 30000  # the reference schedule's Stage I (iterations' default)
-# this script's Stage I: the first 10 000 iterations of the same schedule,
+# this script's Stage I: the first 5000 iterations of the same schedule,
 # since the whole of it does not fit the script's time limit beside phases
-# 1-14 (PERF.md §4); `--phase15 30000` runs it whole, with the gates
-P15_STAGE1 = 10000
+# 1-14 and phase 16 (PERF.md §4); `--phase15 30000` runs it whole, with the
+# gates
+P15_STAGE1 = 5000
 P15_STAGE3 = 1000  # Stage III's first iterations, every cadence at its default
 P15_STRETCH = 3000  # it/s per stretch of one opacity-reset interval
 P15_VIEWS = 16
@@ -2470,11 +2498,21 @@ JAX_MERGED = {"precision(b)": 0.4380, "recall(b)": 0.6159, "f1(b)": 0.5120,
               "strands": 48044}
 JAX_STAGE1_PSNR = 21.57
 JAX_III_1K = {"f1(b)": 0.393, "recall(b)": 0.799}
+# Stage II.5 on the merged model, BASELINE.md:341 (round 5; round 4 from
+# an older checkpoint, :231-236: f1 0.5310, consistency +0.061)
+JAX_GROWN = {"f1(b)": 0.5359, "strand_consistency(b)": 0.2354}
 # the gates at the full Stage I: five times the spread of the two JAX chains
 # on this scene (BASELINE.md:40-41 against :340: 0.006 in F1, 2.7% in strands)
 P15_GATES = {"f1(b)": 0.03, "precision(b)": 0.04, "recall(b)": 0.04}
 P15_STRANDS_REL = 0.15
 P15_PSNR_MIN = JAX_STAGE1_PSNR - 0.5
+# Stage II.5 against JAX's on this scene (round 5 0.5359, round 4 0.5310;
+# strand consistency gains 0.063 and 0.061): F1 within about five times
+# that spread, the consistency gain at least half JAX's, and growth may
+# not cost F1
+P15_GROW_F1 = (0.506, 0.566)
+P15_GROW_SC_GAIN = 0.03
+P15_GROW_F1_DROP = 0.005
 STAMP = re.compile(r" \[\d\d/\d\d \d\d:\d\d:\d\d\]$")  # safe_state's suffix
 
 
@@ -2539,6 +2577,18 @@ class Stamped:
 
 def run_stamped(cmd, log, timeout):
     return Stamped(cmd, log, timeout).wait()
+
+
+def wait_pipeline(run, name, tag, may_stop=False):
+    """Wait for a pipeline run and return its sections; fail() on a
+    non-zero exit unless `may_stop` (a run cut at its timeout)."""
+    rc, lines = run.wait()
+    print(f"  [{name}] {'sh -c ...' if run.cmd[0] == 'sh' else ' '.join(run.cmd[3:])}: "
+          f"exit {rc} after {run.seconds:.1f} s")
+    if rc != 0 and not may_stop:
+        print("\n".join(line for _, line in lines[-40:]))
+        fail(f"{tag}: the pipeline run {name} failed ({rc})")
+    return pipeline_sections(lines)
 
 
 def literal(text):
@@ -2631,12 +2681,12 @@ def stretch_rates(progress, stretch):
     return out
 
 
-def report_train(what, r, n_steps, views, evals_expected, full_window):
+def report_train(what, r, n_steps, views, evals_expected, full_window, tag="phase 15"):
     """Print a train stage's record and fail() on a broken one; returns its
     summary."""
     start = r["start"] or 0
     if r["completed"] is None:
-        fail(f"phase 15: {what} did not complete")
+        fail(f"{tag}: {what} did not complete")
     events = [e for e in r["events"]]
     print(f"  {what}: {n_steps} iterations from {start} in {r['completed'][0]:.1f} s "
           f"({r['completed'][1]:.2f} it/s over the run); {len(events)} topology events, "
@@ -2660,12 +2710,12 @@ def report_train(what, r, n_steps, views, evals_expected, full_window):
     fwd, bwd = la.get("composite_fwd", 0), la.get("composite_bwd", 0)
     nostats = la.get("composite_bwd_nostats", 0)
     if fwd != n_steps + views * evals_expected or bwd + nostats != n_steps:
-        fail(f"phase 15: {what} expected {n_steps + views * evals_expected} forward and "
+        fail(f"{tag}: {what} expected {n_steps + views * evals_expected} forward and "
              f"{n_steps} backward launches, got {la}")
     if full_window and nostats == 0:
-        fail(f"phase 15: {what} ran no backward without stats after the window closed")
+        fail(f"{tag}: {what} ran no backward without stats after the window closed")
     if not all(np.isfinite(p[2]) for p in r["progress"]):
-        fail(f"phase 15: {what} printed a non-finite loss")
+        fail(f"{tag}: {what} printed a non-finite loss")
     return dict(start=start, steps=n_steps, seconds=r["completed"][0],
                 it_per_s=r["completed"][1], stretches=rates, events=len(events),
                 resets=r["resets"], evals=r["evals"], images=r["images"],
@@ -2801,28 +2851,32 @@ def launch_line(lines):
                  if line.startswith("[kernels] launches")), {})
 
 
-def report_scene(lines):
+def report_scene(lines, size=512, tag="phase 15"):
     """Print the reference scene's record and fail() unless it is the
-    reference scene with no GT render dropping a pair; returns the GT
-    renders' launches."""
+    reference scene with every GT render on the forward kernel and, at
+    512x512, none dropping a pair; returns the GT renders' launches and
+    their worst overflow counters."""
     lines = [line for _, line in lines]
     m = next(re.match(r"^dataset done: \S+ (\d+) GT segments; worst over (\d+) "
                       r"views (\{.*\})$", line)
              for line in lines if line.startswith("dataset done"))
     launches = launch_line(lines)
     worst = literal(m.group(3))
-    print(f"  scene: {m.group(1)} GT segments, {m.group(2)} views at 512x512; worst "
+    print(f"  scene: {m.group(1)} GT segments, {m.group(2)} views at {size}x{size}; worst "
           f"over the views {worst}; launches {launches}")
     if int(m.group(1)) != P15_SEGMENTS or int(m.group(2)) != P15_VIEWS:
-        fail(f"phase 15: the scene is not the reference scene: {m.groups()}")
-    if worst["overflow_pairs"] or worst["overflow_tiles"] or worst["overflow_capacity"]:
-        fail(f"phase 15: a GT render dropped pairs: {worst}")
+        fail(f"{tag}: the scene is not the reference scene: {m.groups()}")
+    # generate_dataset's default tables are the reference's; at 1000x1000
+    # the drops are recorded, not gated (JAX renders with the same tables)
+    if size == 512 and (worst["overflow_pairs"] or worst["overflow_tiles"]
+                        or worst["overflow_capacity"]):
+        fail(f"{tag}: a GT render dropped pairs: {worst}")
     if launches.get("composite_fwd") != P15_VIEWS:
-        fail(f"phase 15: the GT renders did not run the forward kernel: {launches}")
-    return launches
+        fail(f"{tag}: the GT renders did not run the forward kernel: {launches}")
+    return launches, worst
 
 
-def report_merge(lines):
+def report_merge(lines, tag="phase 15"):
     """Print the merge stage's record (iterations, seconds, strands, the
     metric table) and fail() if it merged nothing; returns (summary,
     metrics, thresholds)."""
@@ -2844,10 +2898,36 @@ def report_merge(lines):
     for k, v in metrics.items():
         print(f"    {k:<22} " + "  ".join(f"{t} {x:.4f}" for t, x in zip(ths, v)))
     if not rows:
-        fail("phase 15: the merge merged nothing")
+        fail(f"{tag}: the merge merged nothing")
     return dict(converted=conv, iterations=iters, strands=strands,
                 seconds=sum(r[4] for r in rows), metrics=metrics, thresholds=ths), \
         metrics, ths
+
+
+def report_grow(secs, name, tag):
+    """Print a growth step's record (the grow driver's section `name` and
+    the eval driver's on its output, `name`_eval) and fail() unless it grew
+    segments and the eval driver's table equals the one the grow driver
+    printed for the same checkpoint; returns its summary."""
+    lines = [line for _, line in secs[name]]
+    grown = [int(m.group(1)) for line in lines
+             if (m := re.match(r"^growth event \d+: \+(\d+) tip segments", line))]
+    strands = next(((int(m.group(1)), int(m.group(2))) for line in lines
+                    if (m := re.match(r"^merge pass: (\d+) -> (\d+) strands", line))), None)
+    branching = next(int(m.group(1)) for line in lines if (m := re.match(
+        r"^strands whose tip goes on into another segment \(not grown\): (\d+)", line)))
+    printed, ths = metric_table(secs[name])
+    got, _ = metric_table(secs[name + "_eval"])
+    launches = launch_line([line for _, line in secs[name + "_eval"]])
+    at = {k: v[-1] for k, v in got.items()}
+    print(f"  {name}: new segments per event {grown}, merge pass strands {strands}, "
+          f"tips that go on into another segment (not grown; JAX grows them) {branching}; "
+          f"eval driver at {ths[-1]}: " + ", ".join(f"{k} {v:.4f}" for k, v in at.items())
+          + f"; equal to the grow driver's table {got == printed}; launches {launches}")
+    if not grown or grown[0] == 0 or got != printed:
+        fail(f"{tag}: the growth step {name} grew nothing, or its eval disagrees")
+    return dict(grown=grown, strands=strands, branching_tips=branching, metrics=at,
+                launches=launches)
 
 
 def report_trajectory(secs, merged_it):
@@ -2905,16 +2985,11 @@ def reference_pipeline(tmp, n1, full_stage3_s=0, started=None):
     def pipe(name, argv=None, timeout=None, dst=model, may_stop=False, run=None):
         run = run or Stamped(p15_pipeline_cmd(tmp, argv, dst), f"{logs}/{name}.log",
                              timeout)
-        rc, lines = run.wait()
-        print(f"  [{name}] {' '.join(run.cmd[3:])}: exit {rc} after {run.seconds:.1f} s")
-        if rc != 0 and not may_stop:
-            print("\n".join(line for _, line in lines[-40:]))
-            fail(f"phase 15: the pipeline run {name} failed ({rc})")
-        return pipeline_sections(lines)
+        return wait_pipeline(run, name, "phase 15", may_stop)
 
     # step 1: the scene, Stage I and the merge
     secs = pipe("stage1_merge", run=started or start_phase15(tmp, n1))
-    gt_launches = report_scene(secs["scene"])
+    gt_launches, _ = report_scene(secs["scene"])
     s1 = parse_train(secs["stage1"])
     n_evals1 = -(-n1 // 10000)
     rec["stage1"] = report_train("Stage I", s1, n1, P15_VIEWS, n_evals1, n1 >= 27000)
@@ -2959,6 +3034,24 @@ def reference_pipeline(tmp, n1, full_stage3_s=0, started=None):
         misses.append("strands")
     if final1["psnr"] < P15_PSNR_MIN:
         misses.append("stage1_psnr")
+    # step 2b: Stage II.5 on the merged model (the pipeline's grow stage),
+    # held to JAX's Stage II.5 on this scene at the full Stage I
+    secs = pipe("grow", ["--stages", "grow"], 900)
+    rec["grow"] = report_grow(secs, "grow", "phase 15")
+    eval_launches.append(rec["grow"]["launches"])
+    g = rec["grow"]["metrics"]
+    sc0 = at["strand_consistency(b)"]
+    grow_misses = [k for k, ok in (
+        ("grow_f1", P15_GROW_F1[0] <= g["f1(b)"] <= P15_GROW_F1[1]),
+        ("grow_sc", g["strand_consistency(b)"] >= sc0 + P15_GROW_SC_GAIN),
+        ("grow_f1_vs_merged", g["f1(b)"] >= at["f1(b)"] - P15_GROW_F1_DROP)) if not ok]
+    print(f"  Stage II.5 (port, JAX round 5): f1(b) ({g['f1(b)']:.4f}, "
+          f"{JAX_GROWN['f1(b)']}), strand consistency ({g['strand_consistency(b)']:.4f}, "
+          f"{JAX_GROWN['strand_consistency(b)']}); merged f1 {at['f1(b)']:.4f}, strand "
+          f"consistency {sc0:.4f}; gates f1 in {P15_GROW_F1}, consistency >= merged + "
+          f"{P15_GROW_SC_GAIN}, f1 >= merged - {P15_GROW_F1_DROP}: "
+          f"{'held' if not grow_misses else 'missed ' + str(grow_misses)}")
+    misses += grow_misses
     rec["against_jax"] = dict(values=comp, misses=misses, gated=n1 == P15_FULL)
     print(f"  gates {'held' if not misses else 'missed: ' + str(misses)}"
           f"{'' if n1 == P15_FULL else ' (reported only: Stage I cut to %d)' % n1}")
@@ -3027,7 +3120,7 @@ def reference_pipeline(tmp, n1, full_stage3_s=0, started=None):
             *eval_launches]
     rec["launches"] = {k: sum(r.get(k, 0) for r in runs)
                        for k in ("composite_fwd", "composite_bwd", "composite_bwd_nostats")}
-    print(f"  launches over phase 15's children (scene, Stage I, two evaluations, "
+    print(f"  launches over phase 15's children (scene, Stage I, three evaluations, "
           f"Stage III): {rec['launches']}")
     if any(v == 0 for k, v in rec["launches"].items()
            if k != "composite_bwd_nostats" or n1 >= 27000):
@@ -3066,6 +3159,294 @@ def phase15_alone(n1, budget_s):
         "count": torch.cuda.device_count()}}))
 
 
+# phase 16: the 1000x1000 recipe (scripts/run_reference_schedule_1k.sh)
+# through drivers/pipeline.py --recipe 1k, each stage a child process
+P16_SIZE = 1000
+P16_ALPHA_MIN = 1e-5  # the recipe's --alpha_min
+# this script's cut: Stage I's first 10 000 iterations and Stage III's
+# first 500; `--phase16 30000 S` runs Stage I whole. At 1000x1000 the
+# recipe's Stage I grows from 360 Gaussians to 553 by 2000, all of them
+# background (the merge converts no strand and its metrics raise, in JAX
+# too); at 10 000 it holds 40 910 with foreground strands (PERF.md §6)
+P16_STAGE1 = 10000
+P16_STAGE3 = 500
+P16_RESERVE_S = 300  # --phase16 N S: the eval stage after Stage III is cut
+
+
+def p16_pipeline_cmd(tmp, argv):
+    """The 1k recipe's pipeline, its train stages evaluating on the host
+    (`--device_eval false`) so that each evaluation can be held to the
+    eval driver's (the device metrics differ from the host's by up to
+    1.5e-3 on this scene, PERF.md §6)."""
+    return [sys.executable, "-m", "hairgs_tpu_torch.drivers.pipeline", "--recipe", "1k",
+            "-s", f"{tmp}/syn150_1k/data", "-m", f"{tmp}/syn150_1k/model", *argv,
+            "--device_eval", "false"]
+
+
+def start_phase16(tmp, n1, n3):
+    """Phase 16's chain started in the background: the scene, Stage I for
+    n1 iterations, the merge and Stage II.5; then Stage III for n3
+    iterations and the eval stage (final eval, growth, its eval)."""
+    import shlex
+
+    a = p16_pipeline_cmd(tmp, ["--stages", "stage1,merge,grow", "--iterations", str(n1)])
+    b = p16_pipeline_cmd(tmp, ["--stages", "stage3,eval", "--iterations", str(n3)])
+    return Stamped(["sh", "-c", f"{shlex.join(a)} && {shlex.join(b)}"],
+                   f"{p15_logs()}/p16_chain.log", 900 + 0.2 * n1 + 0.5 * n3)
+
+
+def aa_kernel_check(data, model_dir, n1, tmp):
+    """Phase 16 (a): both compositor kernels (the backward with and
+    without stats) against their plain versions at view 0 of the Stage-I
+    model at 1000x1000, under antialiasing at alpha_min 1e-5 with the
+    recipe's tables; their times (CUDA events, 20 launches; the plain
+    versions one call each), the pair-pixels that pass the gates (and at
+    1/255 for comparison), the cull's shares and the bounds. Returns the
+    kernels line's numbers."""
+    from argparse import Namespace
+
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.scene import Scene
+
+    one = f"{tmp}/p16_stage1"
+    shutil.copytree(f"{model_dir}/point_cloud/iteration_{n1}",
+                    f"{one}/point_cloud/iteration_{n1}")
+    scene = Scene(Namespace(source_path=data, model_path=one, images="images",
+                            resolution=-1, sh_degree=0, data_device="cuda", eval=False),
+                  shuffle=False, capacity_round=131072)
+    m, cam = scene.gaussians, scene.get_cameras()[0]
+    w, h = cam.width, cam.height
+    cfg = RasterConfig(max_tiles_per_gaussian=64, max_pairs_per_tile=2048, chunk=128,
+                       antialiasing=True, alpha_min=P16_ALPHA_MIN, use_pallas=True)
+    geo, feat, starts, counts, binning = pair_table(m.params, m.active, cam, w, h, cfg,
+                                                    m.active_sh_degree)
+    grid_w, chunk, mc, C = (w + 15) // 16, cfg.chunk, cfg.max_pairs_per_tile // cfg.chunk, 7
+    name = f"phase 16 view 0 ({w}x{h}, antialiasing, alpha_min {P16_ALPHA_MIN:g})"
+    _, pairs, chunks = table_sizes(counts, chunk)
+    print(f"  {name}: {m.count} Gaussians, {pairs} pairs in {chunks} chunks, fullest "
+          f"tile {int(counts.max())}; overflow pairs {int(binning.overflow_pairs)}, "
+          f"tiles {int(binning.overflow_tiles)}, capacity {int(binning.overflow_capacity)}")
+    fwd_err, fwd = check_forward(name, geo, feat, starts, counts, grid_w, chunk, mc, C,
+                                 alpha_min=P16_ALPHA_MIN)
+    bwd_err = check_backward(name, geo, feat, starts, counts, fwd, grid_w, chunk, mc, C,
+                             seed=16, alpha_min=P16_ALPHA_MIN)
+    _, trans, tstarts, latch = fwd
+    cnt = cp.clamp_counts_to_live_chunks(counts, tstarts, chunk, mc)
+    cots = bwd_cotangents(starts.shape[0], C, 17, geo.device)
+    fargs = (geo, feat, starts, counts, grid_w, 16, chunk, mc, C, P16_ALPHA_MIN)
+
+    def bargs(stats):
+        return (geo, feat, starts, cnt, tstarts, latch, trans, *cots, grid_w, 16, chunk,
+                mc, C, stats, P16_ALPHA_MIN)
+
+    fg = gate_counts(geo, starts, counts, grid_w, alpha_min=P16_ALPHA_MIN)
+    bg = gate_counts(geo, starts, cnt, grid_w, alpha_min=P16_ALPHA_MIN)
+    fg255 = gate_counts(geo, starts, counts, grid_w)
+    n_sw, touched, kept = warp_shares(geo, starts, counts, grid_w, alpha_min=P16_ALPHA_MIN)
+    print(f"  pair-pixels {fg[0]}: passing the gates at alpha_min {P16_ALPHA_MIN:g} "
+          f"{fg[1]} (backward {bg[1]}), at 1/255 {fg255[1]}; (slot, warp) combinations "
+          f"{n_sw}: some lane passes in {touched / n_sw:.4f}, the cull keeps "
+          f"{kept / n_sw:.4f}; pixels with final T < 0.01 {int((trans < 0.01).sum())} "
+          f"of {trans.numel()}")
+    out = {}
+    for key, run, plain, (bound, by) in (
+            ("composite_fwd", lambda: cp.composite_pairs_fwd_cuda(*fargs),
+             lambda: cp.composite_pairs_fwd_plain(*fargs), fwd_bound_ms(counts, chunk, C, fg)),
+            ("composite_bwd", lambda: cp.composite_pairs_bwd_cuda(*bargs(True)),
+             lambda: cp.composite_pairs_bwd_plain(*bargs(True)),
+             bwd_bound_ms(cnt, chunk, C, bg)),
+            ("composite_bwd_nostats", lambda: cp.composite_pairs_bwd_cuda(*bargs(False)),
+             lambda: cp.composite_pairs_bwd_plain(*bargs(False)),
+             bwd_bound_ms(cnt, chunk, C, bg, stats=False))):
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 1, warm=False)
+        out[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        max_abs_err=fwd_err if key == "composite_fwd" else bwd_err)
+        print(f"  {key} at alpha_min {P16_ALPHA_MIN:g}: {ms:.4f} ms (plain {plain_ms:.3f} "
+              f"ms, one call), bound {bound:.4f} ms by {by}, {bound / ms:.1%} of it")
+    del scene, m, geo, feat, fwd
+    torch.cuda.empty_cache()
+    return dict(out, pairs=pairs, pair_pixels=fg[0], passing=fg[1], passing_bwd=bg[1],
+                passing_at_1_255=fg255[1], warp_touched=touched / n_sw, warp_kept=kept / n_sw)
+
+
+def grow_card_against_cpu(data, model_dir, post_merge, tmp, pipeline_out):
+    """Phase 16 (c): the grow driver on the card and on the CPU from the
+    same post-merge checkpoint: new segments per event and the strands
+    after the merge pass equal, endpoints within 1e-5, the graphs equal;
+    and the card's result equal to the pipeline's grown_postmerge."""
+    import os
+
+    from hairgs_tpu_torch.drivers import grow_and_save
+    from hairgs_tpu_torch.io.ply import load_hair_ply
+
+    res = {dev: grow_and_save.main(["-s", data, "-m", model_dir, "--base_iter",
+                                    str(post_merge), "--out", f"{tmp}/p16_grow_{dev}",
+                                    "--data_device", dev])
+           for dev in ("cuda", "cpu")}
+    a, b = (load_hair_ply(res[d]["path"], 0)[0] for d in ("cuda", "cpu"))
+    it_dir = os.path.basename(os.path.dirname(res["cuda"]["path"]))
+    c = load_hair_ply(os.path.join(pipeline_out, "point_cloud", it_dir, "point_cloud.ply"),
+                      0)[0]
+    err = float(np.abs(a["endpoints"] - b["endpoints"]).max())
+    graph = np.array_equal(a["endpoint_pairs"], b["endpoint_pairs"])
+    as_pipeline = all(np.array_equal(a[k], c[k]) for k in a)
+    r = {d: {k: res[d][k] for k in ("grown", "strands", "branching_tips")}
+         for d in res}
+    print(f"  grow driver on the card {r['cuda']} and on the CPU {r['cpu']}: endpoints max "
+          f"abs err {err:.3e}, graphs equal {graph}; the card's PLY equal to the "
+          f"pipeline's {as_pipeline}")
+    if r["cuda"] != r["cpu"] or err > 1e-5 or not graph or not as_pipeline:
+        fail("phase 16: the grow driver on the card disagrees with the CPU or the pipeline")
+    return dict(r["cuda"], endpoint_err=err)
+
+
+def recipe_1k(tmp, n1, n3=P16_STAGE3, full_stage3_s=0, started=None):
+    """Phase 16: run_reference_schedule_1k.sh through drivers/pipeline.py
+    --recipe 1k on the seed-0 scene at 1000x1000 (written on the card; the
+    GT renders' drops printed): Stage I for n1 iterations under the
+    recipe's flags (the pairs truncated at each sync printed), the merge,
+    Stage II.5 and its eval; then (a) the kernels at a view of the Stage-I
+    model under antialiasing at alpha_min 1e-5, (b) the antialiased step's
+    gradients on the card against the CPU, (c) the grow driver on the card
+    against the CPU; Stage III for n3 iterations (or, with `full_stage3_s`,
+    its whole schedule until that many seconds are left, less
+    P16_RESERVE_S) with async topology events, the final eval, the growth
+    of the final model and its eval, (d) each eval driver's metrics equal
+    to those printed for the same checkpoint. `started`: the whole chain as
+    start_phase16 started it (checks (a)-(c) then run after it). Returns a
+    record."""
+    import os
+
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+
+    logs = p15_logs()
+    root = f"{tmp}/syn150_1k"
+    data, model = f"{root}/data", f"{root}/model"
+    tag = "phase 16"
+    rec = dict(stage1_iterations=n1)
+
+    def pipe(name, argv, timeout, may_stop=False):
+        return wait_pipeline(Stamped(p16_pipeline_cmd(tmp, argv), f"{logs}/{name}.log",
+                                     timeout), name, tag, may_stop)
+
+    if started is None:
+        secs = pipe("p16_stage1", ["--stages", "stage1", "--iterations", str(n1)],
+                    900 + 0.15 * n1)
+    else:
+        secs = wait_pipeline(started, "p16_chain", tag)
+    gt_launches, rec["gt_overflow"] = report_scene(secs["scene"], P16_SIZE, tag)
+    s1 = parse_train(secs["stage1"])
+    rec["stage1"] = report_train("Stage I", s1, n1, P15_VIEWS, -(-n1 // 10000),
+                                 n1 >= 27000, tag)
+    sizes = [(p[0], p[3]) for p in s1["progress"] if p[0] % 1000 == 0]
+    print(f"  Stage I Gaussians every 1000 iterations: {sizes}; pairs truncated at those "
+          f"syncs (iteration, pair-budget, tile-cap, capacity): "
+          f"{[w for w in s1['warns'] if w[0] % 1000 == 0]}")
+    rec["stage1"]["sizes"] = sizes
+    warns = s1["warns"]
+    if warns:
+        tile, budget = np.array([w[2] for w in warns]), np.array([w[1] for w in warns])
+        print(f"  pairs truncated per sync (Stage I, {len(warns)} syncs with any): tile-cap "
+              f"mean {tile.mean():.0f} max {tile.max()}, pair-budget mean {budget.mean():.0f} "
+              f"max {budget.max()}; the last syncs {warns[-3:]}")
+        rec["stage1"]["truncated"] = dict(syncs=len(warns), tile_cap_mean=float(tile.mean()),
+                                          tile_cap_max=int(tile.max()),
+                                          pair_budget_max=int(budget.max()), last=warns[-3:])
+    print("  (a) the kernels under antialiasing at alpha_min 1e-5")
+    rec["kernels"] = aa_kernel_check(data, model, n1, tmp)
+    print("  (b) the antialiased step's gradients on the card against the CPU")
+    check_grads_against_cpu(RasterConfig(
+        max_tiles_per_gaussian=16, max_pairs_per_tile=2048, chunk=128,
+        pair_capacity=786432, antialiasing=True, alpha_min=P16_ALPHA_MIN,
+        use_pallas=True))
+    if started is None:
+        secs.update(pipe("p16_merge_grow", ["--stages", "merge,grow",
+                                            "--iterations", str(n1)], 1800))
+    rec["merge"], merged, ths = report_merge(secs["merge"], tag)
+    with open(f"{root}/post_merge_iter.txt") as f:
+        post_merge = int(f.read())
+    rec["merged"] = {k: v[-1] for k, v in merged.items()}
+    rec["grow"] = report_grow(secs, "grow", tag)
+    print("  (c) the grow driver on the card against the CPU")
+    rec["grow_card_cpu"] = grow_card_against_cpu(data, model, post_merge, tmp,
+                                                 f"{root}/grown_postmerge")
+
+    full = bool(full_stage3_s)
+    if started is None:
+        if full:
+            secs.update(pipe("p16_stage3_full", ["--stages", "stage3"],
+                             max(60.0, full_stage3_s() - P16_RESERVE_S), may_stop=True))
+            secs.update(pipe("p16_eval", ["--stages", "eval"], P16_RESERVE_S + 600))
+        else:
+            secs.update(pipe("p16_stage3_eval", ["--stages", "stage3,eval", "--iterations",
+                                                 str(n3)], 900 + 0.5 * n3))
+    s3 = parse_train(secs["stage3"])
+    if s3["start"] != post_merge:
+        fail(f"{tag}: Stage III started from {s3['start']}, not {post_merge}")
+    if full:
+        rec["stage3"] = report_trajectory(secs, post_merge)
+        rec["stage3"]["launches"] = s3["launches"] or {}
+    else:
+        rec["stage3"] = report_train("Stage III", s3, n3, P15_VIEWS, 1, False, tag)
+        if not s3["events"]:
+            fail(f"{tag}: Stage III ran no topology event")
+    # (d) the final eval against Stage III's evaluation of that checkpoint
+    last = max(int(d.split("_")[-1]) for d in os.listdir(f"{model}/point_cloud"))
+    ev, _ = metric_table(secs["eval"])
+    got = {k: round(v[-1], 4) for k, v in ev.items()}
+    end = s3["evals"].get(last)
+    print(f"  final eval driver on iteration {last}: {got}; Stage III's evaluation there "
+          f"{end and {k: end[k] for k in got if k in end}}")
+    if (end is None and not full) or (end is not None and any(
+            end[k] != v for k, v in got.items() if k in end)):
+        fail(f"{tag}: the final eval driver disagrees with Stage III's evaluation")
+    rec["final"] = dict(iteration=last, metrics=got)
+    rec["grow_final"] = report_grow(secs, "grow_final", tag)
+    eval_launches = [launch_line([line for _, line in secs[k]])
+                     for k in ("grow_eval", "eval", "grow_final_eval")]
+    keys = ("composite_fwd", "composite_bwd", "composite_bwd_nostats")
+    rec["aa_launches"] = {k: rec["stage1"]["launches"].get(k, 0)
+                          + rec["stage3"]["launches"].get(k, 0) for k in keys}
+    rec["launches"] = {k: rec["aa_launches"][k] + sum(r.get(k, 0) for r in [
+        gt_launches, *eval_launches]) for k in keys}
+    print(f"  launches over phase 16's children: {rec['launches']}; of them in the train "
+          f"stages (antialiasing, alpha_min 1e-5) {rec['aa_launches']}")
+    if any(rec["aa_launches"][k] == 0 for k in keys[:2]):
+        fail(f"{tag}: a kernel of the path was never launched: {rec['aa_launches']}")
+    rec["stage_seconds"] = {m.group(1): float(m.group(3)) for sec in secs.values()
+                            for _, line in sec if (m := re.match(
+                                r"^\[pipeline\] (\w+) exited (\S+) after ([\d.]+) s$", line))}
+    print("  wall seconds by child process: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in rec["stage_seconds"].items()))
+    return rec
+
+
+def phase16_alone(n1, budget_s):
+    """`python3 chip_smoke.py --phase16 N [S]`: build the kernels and run
+    phase 16 alone with N Stage-I iterations (30000: the recipe's whole
+    Stage I) and, with S > 0, the whole Stage-III schedule afterwards until
+    S seconds after the start, less P16_RESERVE_S for the final eval and
+    growth; quality is recorded, not gated."""
+    from hairgs_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    for name, r in kernels.build().items():
+        print(f"  {name}: built in {r['seconds']:.1f} s")
+    smi = smi_line()
+    print(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp:
+        rec = recipe_1k(tmp, n1, full_stage3_s=budget_s and (
+            lambda: budget_s - 60 - (time.perf_counter() - t0)))
+    print(f"  total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"phase16": rec}, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -3075,6 +3456,8 @@ def main():
         return slab_oracle_driver(int(sys.argv[2]), sys.argv[3:])
     if sys.argv[1:2] == ["--phase15"]:
         return phase15_alone(int(sys.argv[2]), float(sys.argv[3]) if sys.argv[3:] else 0)
+    if sys.argv[1:2] == ["--phase16"]:
+        return phase16_alone(int(sys.argv[2]), float(sys.argv[3]) if sys.argv[3:] else 0)
     from hairgs_tpu_torch import kernels
     from hairgs_tpu_torch.bench_scene import build_bench_scene
     from hairgs_tpu_torch.core.camera import stack_cameras
@@ -3328,6 +3711,10 @@ def main():
     p15_run = start_phase15(p15_dir.name, P15_STAGE1)
     print(f"phase 15 started: the scene, Stage I ({P15_STAGE1} of {P15_FULL} "
           f"iterations) and the merge through drivers/pipeline.py, beside phases 11-14")
+    p16_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_p16_")
+    p16_run = start_phase16(p16_dir.name, P16_STAGE1, P16_STAGE3)
+    print(f"phase 16 started: the 1k recipe through drivers/pipeline.py --recipe 1k "
+          f"(Stage I {P16_STAGE1}, Stage III {P16_STAGE3} iterations), beside phases 11-15")
 
     # phase 12 continues from phase 11's capture and model directory
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_stages_")
@@ -3360,9 +3747,11 @@ def main():
         tmp, dict(stage3, rows=keep3["record"].rows, loss_last=synced[-1]["loss"]), smi)
     # the render driver's kernel times (the kernels line's C = 3 entry)
     # without phase 15's Stage I on the card
-    p15_run.pause()
+    for run in (p15_run, p16_run):
+        run.pause()
     phase13["render_driver"] = render_driver_check(tmp, keep3, smi)
-    p15_run.pause(False)
+    for run in (p15_run, p16_run):
+        run.pause(False)
     phase13["gabor"] = gabor_check(tmp, keep1, smi)
     phase13["usc_parse"] = usc_parse_check(tmp, smi)
     phase13["grid"] = grid_check(keep3)
@@ -3388,6 +3777,15 @@ def main():
     p15_dir.cleanup()
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s after phase 14, "
           f"{p15_run.seconds:.1f} s of step 1 beside phases 11-14")
+
+    print(f"phase 16: the 1k recipe through drivers/pipeline.py --recipe 1k (Stage I "
+          f"{P16_STAGE1}, Stage III {P16_STAGE3} iterations)")
+    t_phase = time.perf_counter()
+    phase16 = recipe_1k(p16_dir.name, P16_STAGE1, P16_STAGE3, started=p16_run)
+    p16_dir.cleanup()
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s after phase 15, "
+          f"{p16_run.seconds:.1f} s of its chain beside phases 11-15")
+    aa = phase16["kernels"]
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -3418,6 +3816,13 @@ def main():
          "launches": phase13["render_driver"]["c3_launches"],
          **phase13["render_driver"]["checks"][3], "library_ms": None},
         probe_entry,
+        *({"name": f"{k}_aa", "route": "cuda", "source": src + k + ".cu",
+           "replaces": "hairgs_tpu/render/pallas_composite.py:"
+                       + ("153" if k == "composite_fwd" else "272"),
+           "launches": phase16["aa_launches"][k],
+           **{f: aa[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+           "library_ms": None} for k in ("composite_fwd", "composite_bwd")),
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"step_ms": ms_step, "it_per_s": n_timed / dt,
@@ -3425,7 +3830,7 @@ def main():
                       "bf16_step_ms": ms_step_b, "batched_step_ms": ms_batch,
                       "stage1_driver": stage1, "stage2_merge": stage2,
                       "stage3_driver": stage3, "phase13": phase13,
-                      "phase14": phase14, "phase15": phase15,
+                      "phase14": phase14, "phase15": phase15, "phase16": phase16,
                       "probe_device_ms": probe_device_ms, "card": smi},
                      default=str))
     print(json.dumps(kernels_line))

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of hairgs_tpu_torch (the
 drivers, the hair model, the topology, the parallel package and the native
 library's wrapper too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
-nothing of JAX or of the JAX package, and leaves TF32 switched off for
+nothing of JAX, of the JAX package or of scripts/, and leaves TF32 switched off for
 matmuls and for cuDNN's convolutions."""
 
 import json
@@ -12,8 +12,9 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, json, os, pkgutil, sys
 import hairgs_tpu_torch
+scripts = os.path.join(os.getcwd(), "scripts") + os.sep
 names = [m.name for m in pkgutil.walk_packages(hairgs_tpu_torch.__path__,
                                                "hairgs_tpu_torch.")]
 for name in names:
@@ -22,9 +23,11 @@ import chip_smoke
 import torch
 print(json.dumps({
     "modules": names,
-    "foreign": sorted(m for m in sys.modules
+    "foreign": sorted(m for m, mod in list(sys.modules.items())
                       if m.startswith("jax")
-                      or m == "hairgs_tpu" or m.startswith("hairgs_tpu.")),
+                      or m == "hairgs_tpu" or m.startswith("hairgs_tpu.")
+                      or m == "scripts" or m.startswith("scripts.")
+                      or (getattr(mod, "__file__", None) or "").startswith(scripts)),
     "tf32": torch.backends.cuda.matmul.allow_tf32,
     "cudnn_tf32": torch.backends.cudnn.allow_tf32,
 }))
@@ -44,9 +47,10 @@ def test_port_imports_nothing_of_jax():
                  "drivers.parse_usc_hairsalon", "data.vision", "data.usc",
                  "data.head", "data.cy", "data.flame", "visualization",
                  "network_gui", "parallel", "parallel.mesh", "parallel.slab",
-                 "parallel.multihost", "drivers.convert_output", "drivers.pipeline"):
+                 "parallel.multihost", "drivers.convert_output", "drivers.pipeline",
+                 "drivers.grow_and_save"):
         assert f"hairgs_tpu_torch.{name}" in report["modules"], name
-    assert len(report["modules"]) >= 72
+    assert len(report["modules"]) >= 73
     assert report["foreign"] == []
     assert report["tf32"] is False
     assert report["cudnn_tf32"] is False
