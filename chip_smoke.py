@@ -14,8 +14,10 @@ checkpoint, then runs Stage II (the merge driver), Stage III (the train
 driver on the strand graph) and the eval driver on that capture, then the
 rest of the training and data paths on those models (device metrics,
 async topology events, the render driver, the Gabor bank, the USC parse
-driver, the 2D grid), and prints the kernels' times beside their bounds.
-Exits non-zero on any failure, and when no CUDA device is present.
+driver, the 2D grid), the reference pipelines (phases 15-16) and the
+NeRSemble and USC data paths (phase 17), and prints the kernels' times
+beside their bounds. Exits non-zero on any failure, and when no CUDA device
+is present.
 
 Phases: 1 build; 2 card; 3-4 the f32 compositor kernels against their plain
 versions (the forward's latch plane included), on the latch fixture, on
@@ -43,7 +45,7 @@ render driver (`drivers/render.py`, all five types on the hair model,
 type 0 on the Gaussian one; one view of the C = 7 and of the C = 3 forward
 against the plain version), `generate_dataset(orientation_source="gabor")`
 at 16 x 1000^2 (a crop on the card against the CPU), the USC parse driver
-on a sample written by scripts/synthesize_usc_sample.py, and the 2D grid
+on a sample written by drivers/synthesize_usc_sample.py, and the 2D grid
 (`visualization.py`); 14 the parallel paths of `parallel/` with ranks that
 share the one card over gloo (correctness and collective counts, no
 scaling): the slab render at k = 2 and 4 against one render of the
@@ -76,7 +78,17 @@ Stage-I model under antialiasing at alpha_min 1e-5, with their times,
 passing pair-pixels, cull shares and bounds, (b) the antialiased step's
 gradients on the card against the CPU, (c) the grow driver on the card
 against the CPU, (d) each eval driver's metrics against those printed for
-the same checkpoint.
+the same strands (the checkpoint's, on the host); 17 beside phases 11-16,
+as child processes: (a) a NeRSemble-layout capture made from the
+reference scene at 1000x1000 (16 views as JPEGs, alpha and facer
+segmentation maps at 2000x2000, synthetic FLAME pickles at FLAME's sizes),
+`drivers/parse_nersemble.py` on the card and on the CPU (held to each
+other), the Stage-I driver for 1000 iterations on the card's parse (the
+FLAME vertices its initial points), the Gabor bank's ms per view and the
+forward kernel against its plain version at a view of that model; (b)
+`drivers/pipeline.py --recipe usc` (scripts/usc_dress_rehearsal.sh: a
+sample of 10 000 strands x 100 points, the USC parse at 16 x 1000^2 on the
+card, 500 Stage-I iterations, the eval driver at ~990k GT points).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase15 30000 [S]   # phase 15 alone, the whole
@@ -85,6 +97,7 @@ the same checkpoint.
     python3 chip_smoke.py --phase16 30000 [S]   # phase 16 alone, the whole
     # Stage-I schedule, then the whole Stage-III schedule until S seconds
     # after the start; quality recorded, not gated
+    python3 chip_smoke.py --phase17             # phase 17 alone
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1711,24 +1724,19 @@ def gabor_check(tmp, keep, smi):
 
 
 def usc_parse_check(tmp, smi):
-    """Phase 13, step 5: a USC sample written by
-    scripts/synthesize_usc_sample.py (numpy only; the USC format has 10000
+    """Phase 13, step 5: a USC sample written by the port's
+    drivers/synthesize_usc_sample.py (numpy only; the USC format has 10000
     strands, of which 90% are 1-vertex stubs here: ~1000 strands of 100
     points), then the parse driver with Gabor orientations."""
     import os
 
-    from hairgs_tpu_torch.drivers import parse_usc_hairsalon
+    from hairgs_tpu_torch.drivers import parse_usc_hairsalon, synthesize_usc_sample
     from hairgs_tpu_torch.io.dataset import read_colmap_scene_info
 
-    root = os.path.dirname(os.path.abspath(__file__))
     usc = f"{tmp}/usc"
-    out = subprocess.run(
-        [sys.executable, os.path.join(root, "scripts", "synthesize_usc_sample.py"),
-         "--out", usc, "--num_strands", "10000", "--stub_fraction", "0.9",
-         "--seed", "0"], capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        fail(f"synthesize_usc_sample.py failed: {out.stderr[-2000:]}")
-    print(f"  {out.stdout.strip()}")
+    print("  ", end="")
+    synthesize_usc_sample.main(["--out", usc, "--num_strands", "10000",
+                                "--stub_fraction", "0.9", "--seed", "0"])
     t0 = time.perf_counter()
     written = parse_usc_hairsalon.main(["-d", usc, "-o", f"{tmp}/usc_scene",
                                         *USC_PARSE_FLAGS])
@@ -2912,22 +2920,28 @@ def report_grow(secs, name, tag):
     lines = [line for _, line in secs[name]]
     grown = [int(m.group(1)) for line in lines
              if (m := re.match(r"^growth event \d+: \+(\d+) tip segments", line))]
+    joined = [int(m.group(1)) for line in lines
+              if (m := re.match(r"^  of them in the recomputed strands info: (\d+)", line))]
     strands = next(((int(m.group(1)), int(m.group(2))) for line in lines
                     if (m := re.match(r"^merge pass: (\d+) -> (\d+) strands", line))), None)
     branching = next(int(m.group(1)) for line in lines if (m := re.match(
         r"^strands whose tip goes on into another segment \(not grown\): (\d+)", line)))
+    loaded = next((int(m.group(1)), int(m.group(2))) for line in lines if (m := re.match(
+        r"^loaded iteration_\d+: (\d+) segments, (\d+) strands$", line)))
     printed, ths = metric_table(secs[name])
     got, _ = metric_table(secs[name + "_eval"])
     launches = launch_line([line for _, line in secs[name + "_eval"]])
     at = {k: v[-1] for k, v in got.items()}
-    print(f"  {name}: new segments per event {grown}, merge pass strands {strands}, "
+    print(f"  {name}: {loaded[0]} segments in {loaded[1]} strands walked on load; new "
+          f"segments per event {grown} (in the strands info walked after "
+          f"each: {joined}), merge pass strands {strands}, "
           f"tips that go on into another segment (not grown; JAX grows them) {branching}; "
           f"eval driver at {ths[-1]}: " + ", ".join(f"{k} {v:.4f}" for k, v in at.items())
           + f"; equal to the grow driver's table {got == printed}; launches {launches}")
     if not grown or grown[0] == 0 or got != printed:
         fail(f"{tag}: the growth step {name} grew nothing, or its eval disagrees")
-    return dict(grown=grown, strands=strands, branching_tips=branching, metrics=at,
-                launches=launches)
+    return dict(loaded=loaded, grown=grown, joined=joined, strands=strands,
+                branching_tips=branching, metrics=at, launches=launches)
 
 
 def report_trajectory(secs, merged_it):
@@ -3174,13 +3188,10 @@ P16_RESERVE_S = 300  # --phase16 N S: the eval stage after Stage III is cut
 
 
 def p16_pipeline_cmd(tmp, argv):
-    """The 1k recipe's pipeline, its train stages evaluating on the host
-    (`--device_eval false`) so that each evaluation can be held to the
-    eval driver's (the device metrics differ from the host's by up to
-    1.5e-3 on this scene, PERF.md §6)."""
+    """The 1k recipe's pipeline, its train stages at the driver's defaults:
+    the in-training evaluations on the device, the final one on the host."""
     return [sys.executable, "-m", "hairgs_tpu_torch.drivers.pipeline", "--recipe", "1k",
-            "-s", f"{tmp}/syn150_1k/data", "-m", f"{tmp}/syn150_1k/model", *argv,
-            "--device_eval", "false"]
+            "-s", f"{tmp}/syn150_1k/data", "-m", f"{tmp}/syn150_1k/model", *argv]
 
 
 def start_phase16(tmp, n1, n3):
@@ -3392,18 +3403,32 @@ def recipe_1k(tmp, n1, n3=P16_STAGE3, full_stage3_s=0, started=None):
         rec["stage3"] = report_train("Stage III", s3, n3, P15_VIEWS, 1, False, tag)
         if not s3["events"]:
             fail(f"{tag}: Stage III ran no topology event")
-    # (d) the final eval against Stage III's evaluation of that checkpoint
+    # (d) the final eval against Stage III's evaluation of the same strands
+    # on the host. The train driver evaluates the strands info of its last
+    # topology event (model.strands_info); the eval driver walks the
+    # checkpoint's strands again, as the grow driver does when it loads
+    # it (a walk on load equals the walk at an event,
+    # tests/test_torch_port_stage23.py). The sets are one when the walk on
+    # load counts the event's segments and strands.
     last = max(int(d.split("_")[-1]) for d in os.listdir(f"{model}/point_cloud"))
+    rec["grow_final"] = report_grow(secs, "grow_final", tag)
+    walked = rec["grow_final"]["loaded"]
     ev, _ = metric_table(secs["eval"])
     got = {k: round(v[-1], 4) for k, v in ev.items()}
     end = s3["evals"].get(last)
-    print(f"  final eval driver on iteration {last}: {got}; Stage III's evaluation there "
-          f"{end and {k: end[k] for k in got if k in end}}")
-    if (end is None and not full) or (end is not None and any(
-            end[k] != v for k, v in got.items() if k in end)):
+    like = end is not None and end["on"] == "host" and (end["size"], end["strands"]) == walked
+    print(f"  final eval driver on iteration {last} ({walked[1]} strands walked on load): "
+          f"{got}; Stage III's evaluation there "
+          f"{end and dict(strands=end['strands'], on=end['on'], **{k: end[k] for k in got if k in end})}")
+    if not like:
+        print("  not the same strands on the host: the in-training evaluation read the "
+              "strands info of an earlier topology event, or ran on the device")
+        if not full:
+            fail(f"{tag}: Stage III's final evaluation is not of the checkpoint's strands")
+    elif any(end[k] != v for k, v in got.items() if k in end):
         fail(f"{tag}: the final eval driver disagrees with Stage III's evaluation")
-    rec["final"] = dict(iteration=last, metrics=got)
-    rec["grow_final"] = report_grow(secs, "grow_final", tag)
+    rec["final"] = dict(iteration=last, metrics=got, strands_walked=walked[1],
+                        strands_evaluated=end and end["strands"], same_strands=like)
     eval_launches = [launch_line([line for _, line in secs[k]])
                      for k in ("grow_eval", "eval", "grow_final_eval")]
     keys = ("composite_fwd", "composite_bwd", "composite_bwd_nostats")
@@ -3447,6 +3472,404 @@ def phase16_alone(n1, budget_s):
         "count": torch.cuda.device_count()}}))
 
 
+# phase 17: the NeRSemble capture path (drivers/parse_nersemble.py, then the
+# Stage-I driver on the parsed scene) and the USC dress rehearsal
+# (drivers/pipeline.py --recipe usc), as child processes beside phases 11-16
+P17_SIZE = 1000  # the seed-0 reference scene at 1000x1000, 16 views
+P17_VIEWS = 16
+P17_PID = "017"
+P17_SERIAL = 222200000  # a NeRSemble camera serial: this + the COLMAP id
+# FLAME 2023's sizes: vertices, joints, shape and expression components
+FLAME_SIZES = dict(verts=5023, joints=5, shape=300, expression=100)
+P17_STAGE1 = [*STAGE1_FLAGS, "--ip", ""]
+P17_CPU_THREADS = 4  # the CPU parse's torch threads (the children share 8 cores)
+P17_MARK = "### phase 17 step "
+P17_CONF_STEP = 1  # the confidence maps' gate: 1 of 255 where the orientation agrees
+P17_ORIENT_SHARE = 0.99
+
+
+def write_flame_assets(root, center, radii, seed=0):
+    """Synthetic FLAME pickles at FLAME 2023's sizes (the licensed model is
+    not in the repository): a template of points spread evenly over an
+    ellipsoid (`center`, `radii`), its convex hull as the faces, small
+    random shape, expression and pose blend shapes, random skinning, the
+    scalp mask the template's upper fifth; and a tracked fit of frame 0.
+    Returns (model path, mask path, tracked fit)."""
+    import os
+    import pickle
+
+    from scipy.spatial import ConvexHull
+
+    rng = np.random.default_rng(seed)
+    n, j = FLAME_SIZES["verts"], FLAME_SIZES["joints"]
+    i = np.arange(n) + 0.5
+    phi, theta = np.arccos(1 - 2 * i / n), np.pi * (1 + 5 ** 0.5) * i
+    unit = np.stack([np.cos(theta) * np.sin(phi), np.cos(phi),
+                     np.sin(theta) * np.sin(phi)], axis=1)
+    jr = np.abs(rng.normal(size=(j, n)))
+    w = np.abs(rng.normal(size=(n, j)))
+    model = {
+        "v_template": center + unit * radii,
+        "shapedirs": rng.normal(size=(n, 3, FLAME_SIZES["shape"] + FLAME_SIZES["expression"]))
+        * 1e-4,
+        "posedirs": rng.normal(size=(n, 3, 9 * (j - 1))) * 1e-4,
+        "J_regressor": jr / jr.sum(axis=1, keepdims=True),
+        "weights": w / w.sum(axis=1, keepdims=True),
+        "kintree_table": np.stack([np.array([0, 0, 1, 1, 1]), np.arange(j)]),
+        "f": ConvexHull(unit).simplices.astype(np.int64),
+    }
+    paths = (os.path.join(root, "flame2023.pkl"), os.path.join(root, "FLAME_masks.pkl"))
+    with open(paths[0], "wb") as f:
+        pickle.dump(model, f)
+    with open(paths[1], "wb") as f:
+        pickle.dump({"scalp": np.nonzero(unit[:, 1] > 0.6)[0]}, f)
+    fit = dict(shape=rng.normal(size=(1, FLAME_SIZES["shape"])),
+               expression=rng.normal(size=(1, FLAME_SIZES["expression"])),
+               neck=rng.normal(size=(1, 3)) * 0.01, eyes=rng.normal(size=(1, 6)) * 0.01,
+               rotation=rng.normal(size=(1, 3)) * 0.01, translation=np.zeros((1, 3)),
+               scale=np.array([[1.0]]))
+    return paths[0], paths[1], fit
+
+
+def write_nersemble_capture(tmp):
+    """Phase 17 (a), step 1: the reference scene at 1000x1000 (written on
+    the card, in `tmp`/scene) made into a NeRSemble-layout capture of
+    participant 017 in `tmp`/raw: its views as images-2x JPEGs (quality 95),
+    its render masks as alpha maps at twice the resolution (each pixel
+    repeated 2x2, so that the parser's resize runs), a facer segmentation
+    at that resolution (class 14 where the mask is at least 128, else 0),
+    camera_params.json with the intrinsics doubled (the parser halves them)
+    and each view's world-to-camera pose, the synthetic FLAME pickles around
+    the hair and a tracked fit."""
+    import json
+    import os
+
+    from PIL import Image
+
+    from hairgs_tpu_torch.drivers.pipeline import write_reference_scene
+    from hairgs_tpu_torch.io.colmap import (
+        qvec2rotmat,
+        read_extrinsics_binary,
+        read_intrinsics_binary,
+    )
+    from hairgs_tpu_torch.io.dataset import read_colmap_scene_info
+
+    scene, raw = f"{tmp}/scene", f"{tmp}/raw"
+    write_reference_scene(scene, "cuda", P17_SIZE)
+    t0 = time.perf_counter()
+    cams = read_intrinsics_binary(f"{scene}/sparse/0/cameras.bin")
+    images = read_extrinsics_binary(f"{scene}/sparse/0/images.bin")
+    f_px, cx, cy = next(iter(cams.values())).params
+    if any(list(c.params) != [f_px, cx, cy] for c in cams.values()):
+        fail("phase 17: the reference scene's cameras do not share their intrinsics")
+    part = f"{raw}/{P17_PID}"
+    frame = f"{part}/sequences/EXP-1-head/timesteps/frame_00000"
+    for sub in ("images-2x", "alpha_map", "facer_segmentation_masks"):
+        os.makedirs(f"{frame}/{sub}", exist_ok=True)
+    os.makedirs(f"{part}/calibration", exist_ok=True)
+    w2c = {}
+    for img in images.values():
+        name = str(P17_SERIAL + img.id)
+        e = np.eye(4)
+        e[:3, :3], e[:3, 3] = qvec2rotmat(img.qvec), img.tvec
+        w2c[name] = e.tolist()
+        with Image.open(f"{scene}/images/{img.name}") as im:
+            im.convert("RGB").save(f"{frame}/images-2x/cam_{name}.jpg", quality=95)
+        with Image.open(f"{scene}/masks/{img.name}") as im:
+            mask = np.asarray(im.convert("L")).repeat(2, axis=0).repeat(2, axis=1)
+        Image.fromarray(mask).save(f"{frame}/alpha_map/cam_{name}.png")
+        Image.fromarray(np.where(mask >= 128, 14, 0).astype(np.uint8)).save(
+            f"{frame}/facer_segmentation_masks/segmentation_cam_{name}.png")
+    k2 = [[2 * f_px, 0, 2 * cx], [0, 2 * f_px, 2 * cy], [0, 0, 1]]
+    with open(f"{part}/calibration/camera_params.json", "w") as f:
+        json.dump({"intrinsics": k2, "world_2_cam": w2c}, f)
+    pts = read_colmap_scene_info(scene).points
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    model_path, mask_path, fit = write_flame_assets(raw, (lo + hi) / 2, (hi - lo) / 2)
+    track = f"{part}/sequences/EXP-1-head/annotations/tracking/FLAME2023_v2"
+    os.makedirs(track, exist_ok=True)
+    np.savez(f"{track}/tracked_flame_params.npz", **fit)
+    print(f"capture: {len(images)} views at {P17_SIZE}x{P17_SIZE} (alpha and segmentation "
+          f"at {2 * P17_SIZE}x{2 * P17_SIZE}), FLAME {FLAME_SIZES}, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def start_phase17(tmp):
+    """Phase 17's children started in the background, one after the other:
+    the capture, the parser on the card and on the CPU, the Stage-I driver
+    on the card's parse, the USC recipe's pipeline. Each is announced by a
+    P17_MARK line."""
+    import os
+    import shlex
+
+    raw = f"{tmp}/raw"
+    parse = [sys.executable, "-m", "hairgs_tpu_torch.drivers.parse_nersemble", "-r", raw,
+             "-i", P17_PID, "--flame_model_path", f"{raw}/flame2023.pkl",
+             "--flame_mask_path", f"{raw}/FLAME_masks.pkl"]
+    steps = [
+        ("capture", [sys.executable, os.path.abspath(__file__), "--nersemble-capture", tmp]),
+        ("parse_cuda", [*parse, "-o", f"{tmp}/parsed_cuda", "--device", "cuda"]),
+        ("parse_cpu", ["env", f"OMP_NUM_THREADS={P17_CPU_THREADS}", *parse, "-o",
+                       f"{tmp}/parsed_cpu", "--device", "cpu"]),
+        ("stage1", [sys.executable, "-m", "hairgs_tpu_torch.drivers.train", "-s",
+                    f"{tmp}/parsed_cuda/{P17_PID}", "-m", f"{tmp}/nersemble_model",
+                    *P17_STAGE1]),
+        ("usc", [sys.executable, "-m", "hairgs_tpu_torch.drivers.pipeline", "--recipe",
+                 "usc", "-s", f"{tmp}/usc/dataset/00001", "-m", f"{tmp}/usc/model"]),
+    ]
+    script = " && ".join(f"echo '{P17_MARK}{name}' && {shlex.join(cmd)}"
+                         for name, cmd in steps) + f" && echo '{P17_MARK}end'"
+    return Stamped(["sh", "-c", script], f"{p15_logs()}/p17_chain.log", 1100)
+
+
+def p17_sections(lines):
+    """{step: [(t, line)]} of phase 17's chain, and each step's seconds
+    (between its mark and the next)."""
+    secs, marks = {}, []
+    for t, line in lines:
+        if line.startswith(P17_MARK):
+            marks.append((line[len(P17_MARK):], t))
+            secs[marks[-1][0]] = []
+        elif marks:
+            secs[marks[-1][0]].append((t, line))
+    return secs, {a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+
+
+def compare_parses(card, cpu):
+    """The card's parse against the CPU's (tests/test_torch_port_nersemble.py's
+    gates): images and masks pixel for pixel, the orientation maps equal on
+    P17_ORIENT_SHARE of the pixels and the confidence maps within
+    P17_CONF_STEP where they are, the COLMAP files and head_mesh.ply byte
+    for byte, the npz within 1e-6. Returns the worst orientation share."""
+    import os
+
+    from PIL import Image
+
+    def px(d, sub, f):
+        with Image.open(os.path.join(d, sub, f)) as im:
+            return np.asarray(im).astype(np.int16)
+
+    shares, bad = [], []
+    for f in sorted(os.listdir(os.path.join(card, "images"))):
+        for sub in ("images", "masks"):
+            if not np.array_equal(px(card, sub, f), px(cpu, sub, f)):
+                bad.append(f"{sub}/{f}")
+        stem = f[:-4]
+        oa, ob = (px(d, "orientations", f"{stem}_orientation.png") for d in (card, cpu))
+        ca, cb = (px(d, "orientations", f"{stem}_confidence.png") for d in (card, cpu))
+        same = oa == ob
+        shares.append(float(same.mean()))
+        if shares[-1] < P17_ORIENT_SHARE or np.abs(ca - cb)[same].max() > P17_CONF_STEP:
+            bad.append(f"orientations/{stem}")
+    for f in ("sparse/0/cameras.bin", "sparse/0/images.bin", "sparse/0/points3D.bin",
+              "head_mesh.ply"):
+        with open(os.path.join(card, f), "rb") as a, open(os.path.join(cpu, f), "rb") as b:
+            if a.read() != b.read():
+                bad.append(f)
+    a, b = (np.load(os.path.join(d, "head_reconstruction_data.npz")) for d in (card, cpu))
+    for k in a.files:
+        if a[k].shape != b[k].shape or np.abs(a[k] - b[k]).max() > 1e-6:
+            bad.append(f"head_reconstruction_data.npz:{k}")
+    print(f"  card against CPU: {len(shares)} views; orientation maps equal on "
+          f"{min(shares):.6f}-{max(shares):.6f} of the pixels; outside the gates: {bad}")
+    if bad or len(shares) != P17_VIEWS:
+        fail("phase 17: the parse on the card disagrees with the CPU's")
+    return min(shares)
+
+
+def gabor_ms_per_view(parsed):
+    """The Gabor bank's ms per view on the card (180 angles, the parser's
+    default) over the parsed background-removed images, host clock around
+    each synchronised call after one warm-up view."""
+    import os
+
+    from PIL import Image
+
+    from hairgs_tpu_torch.data.vision import estimate_orientation_field
+
+    names = sorted(os.listdir(f"{parsed}/images"))
+    ims = []
+    for f in names:
+        with Image.open(f"{parsed}/images/{f}") as im:
+            ims.append(torch.from_numpy(np.array(im)).cuda())
+    estimate_orientation_field(ims[0])
+    ms = []
+    for im in ims:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        estimate_orientation_field(im)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(ms)), ms
+
+
+def nersemble_kernel_check(data, model_dir):
+    """Phase 17 (a): the forward kernel against its plain version at view 0
+    of the Stage-I model on the parsed capture, with the tables the driver
+    ended with (its cfg_args); its time (CUDA events, 20 launches; the plain
+    version one call) and bound, as phase 16 (a)."""
+    from argparse import Namespace
+
+    from hairgs_tpu_torch.config import load_cfg_args
+    from hairgs_tpu_torch.render import composite_pairs as cp
+    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.scene import Scene
+
+    scene = Scene(Namespace(source_path=data, model_path=model_dir, images="images",
+                            resolution=-1, sh_degree=0, data_device="cuda", eval=False),
+                  shuffle=False)
+    stored = load_cfg_args(model_dir)
+    m, cam = scene.gaussians, scene.get_cameras()[0]
+    w, h = cam.width, cam.height
+    cfg = RasterConfig(max_tiles_per_gaussian=stored.max_tiles_per_gaussian,
+                       max_pairs_per_tile=stored.max_pairs_per_tile,
+                       chunk=stored.composite_chunk, use_pallas=True)
+    geo, feat, starts, counts, binning = pair_table(m.params, m.active, cam, w, h, cfg,
+                                                    m.active_sh_degree)
+    grid_w, chunk, mc, C = (w + 15) // 16, cfg.chunk, cfg.max_pairs_per_tile // cfg.chunk, 7
+    name = f"phase 17 NeRSemble view 0 ({w}x{h})"
+    _, pairs, chunks = table_sizes(counts, chunk)
+    print(f"  {name}: {m.count} Gaussians, {pairs} pairs in {chunks} chunks, tables "
+          f"{cfg.max_tiles_per_gaussian} tiles per Gaussian, {cfg.max_pairs_per_tile} pairs "
+          f"per tile, chunk {chunk}; overflow pairs {int(binning.overflow_pairs)}, tiles "
+          f"{int(binning.overflow_tiles)}")
+    err, _ = check_forward(name, geo, feat, starts, counts, grid_w, chunk, mc, C)
+    fargs = (geo, feat, starts, counts, grid_w, 16, chunk, mc, C)
+    ms = cuda_ms(lambda: cp.composite_pairs_fwd_cuda(*fargs), 20)
+    plain_ms = cuda_ms(lambda: cp.composite_pairs_fwd_plain(*fargs), 1, warm=False)
+    gates = gate_counts(geo, starts, counts, grid_w)
+    bound, by = fwd_bound_ms(counts, chunk, C, gates)
+    print(f"  composite_fwd at {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, one call), "
+          f"bound {bound:.4f} ms by {by}, {bound / ms:.1%} of it; pair-pixels {gates[0]}, "
+          f"passing {gates[1]}")
+    del scene, m, geo, feat
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                pairs=pairs, pair_pixels=gates[0], passing=gates[1])
+
+
+def nersemble_path(tmp, secs, dur, smi):
+    """Phase 17 (a) from the chain's record: the capture, the parse on the
+    card against the CPU's, the Gabor bank's ms per view, the Stage-I
+    driver on the parsed scene, the forward kernel at one of its views."""
+    tag = "phase 17"
+    print("  " + next(line for _, line in secs["capture"] if line.startswith("capture:")))
+    out = {}
+    for dev in ("cuda", "cpu"):  # the parser's own lines (warnings share the stream)
+        lines = [line.replace(f"{tmp}/parsed_{dev}", "OUT") for _, line in secs[f"parse_{dev}"]]
+        out[dev] = [line for line in lines if line.startswith((
+            "OUT", "parsed ", "landmark ", "missing ", "Masks failed", "Images failed",
+            "no folder"))]
+    print(f"  parser on the card: {dur['parse_cuda']:.1f} s wall for {P17_VIEWS} views "
+          f"({dur['parse_cuda'] / P17_VIEWS:.2f} s per view, the process's start-up "
+          f"included); on the CPU ({P17_CPU_THREADS} threads): {dur['parse_cpu']:.1f} s "
+          f"[{smi}]; printed {out['cuda']}")
+    if out["cuda"] != out["cpu"] or out["cuda"][-1:] != ["parsed 1/1 participants"]:
+        fail(f"{tag}: the parsers printed {out['cuda']} on the card, {out['cpu']} on the CPU")
+    card, cpu = (f"{tmp}/parsed_{d}/{P17_PID}" for d in ("cuda", "cpu"))
+    share = compare_parses(card, cpu)
+    gabor_ms, per_view = gabor_ms_per_view(card)
+    print(f"  Gabor bank (180 angles, {P17_SIZE}x{P17_SIZE}) on the card: {gabor_ms:.2f} ms "
+          f"per view (min {min(per_view):.2f}, max {max(per_view):.2f}) [{smi}]")
+    s1 = parse_train(secs["stage1"])
+    rec = report_train("Stage I on the parsed capture", s1, 1000, P17_VIEWS, 1, False, tag)
+    peak = next(float(m.group(1)) for _, line in secs["stage1"] if (m := re.match(
+        r"^\[memory\] rank 0 peak ([\d.]+) GiB", line)))
+    psnr = s1["images"][1000]["psnr"]
+    print(f"  Stage I on the parsed capture: {rec['it_per_s']:.2f} it/s, final PSNR {psnr:.3f}, "
+          f"peak device memory {peak:.3f} GiB, {dur['stage1']:.1f} s wall [{smi}]")
+    kernel = nersemble_kernel_check(card, f"{tmp}/nersemble_model")
+    return dict(parse_s=dur["parse_cuda"], parse_s_per_view=dur["parse_cuda"] / P17_VIEWS,
+                parse_cpu_s=dur["parse_cpu"], orientation_share=share, gabor_ms=gabor_ms,
+                stage1=rec, psnr=psnr, peak_gib=peak, kernel=kernel)
+
+
+def usc_rehearsal(tmp, secs, smi):
+    """Phase 17 (b) from the chain's record: drivers/pipeline.py --recipe
+    usc (the sample, the parse at 16 x 1000^2 on the card, Stage I for 500
+    iterations, the eval driver on its last PLY): seconds per step, the GT
+    renders' launches and drops, Stage I's it/s and truncated pairs, the
+    eval's seconds and F1 table."""
+    import os
+
+    tag = "phase 17"
+    run = f"{tmp}/usc"
+    sec = pipeline_sections(secs["usc"])
+    if set(sec) != {"sample", "parse", "stage1", "eval"} or not os.path.exists(
+            f"{run}/done.txt"):
+        fail(f"{tag}: the USC recipe ran {sorted(sec)}")
+    seconds = {m.group(1): float(m.group(3)) for _, line in secs["usc"] if (m := re.match(
+        r"^\[pipeline\] (\w+) exited (\S+) after ([\d.]+) s$", line))}
+    sample = next(line for _, line in sec["sample"] if line.startswith("wrote "))
+    parsed = next(m for _, line in sec["parse"] if (m := re.match(
+        r"^sample 1: dataset written to \S+ \((\d+) GT segments\); worst over (\d+) views "
+        r"(\{.*\})$", line)))
+    gt_launches = launch_line([line for _, line in sec["parse"]])
+    print(f"  USC recipe [{smi}]: seconds per step {seconds}; {sample}; the parse: "
+          f"{parsed.group(1)} GT segments in {parsed.group(2)} views at 1000x1000, worst "
+          f"drops over the views {literal(parsed.group(3))} (generate_dataset's default "
+          f"tables, as the reference's), launches {gt_launches}")
+    if gt_launches.get("composite_fwd") != P17_VIEWS:
+        fail(f"{tag}: the USC parse's GT renders did not run the forward kernel: "
+             f"{gt_launches}")
+    s1 = parse_train(sec["stage1"])
+    rec = report_train("USC Stage I", s1, 500, P17_VIEWS, 2, False, tag)
+    warns = s1["warns"]
+    print(f"  USC Stage I: {rec['it_per_s']:.2f} it/s; pairs truncated (iteration, pair-"
+          f"budget, tile-cap, capacity) at the syncs with any: {warns}")
+    metrics, ths = metric_table(sec["eval"])
+    ev_launches = launch_line([line for _, line in sec["eval"]])
+    print(f"  eval driver (host metrics, {sample.split('(')[1].split(')')[0]}): "
+          f"{seconds['eval']:.1f} s; launches {ev_launches}")
+    for k, v in metrics.items():
+        print(f"    {k:<22} " + "  ".join(f"{t} {x:.4f}" for t, x in zip(ths, v)))
+    if not metrics or not all(np.isfinite(x) for v in metrics.values() for x in v) \
+            or ev_launches.get("composite_fwd") != P17_VIEWS:
+        fail(f"{tag}: the USC recipe's evaluation is incomplete")
+    return dict(seconds=seconds, gt_segments=int(parsed.group(1)),
+                gt_drops=literal(parsed.group(3)), gt_launches=gt_launches, stage1=rec,
+                truncated=warns, eval_s=seconds["eval"], metrics={k: v[-1] for k, v in
+                                                                 metrics.items()},
+                eval_launches=ev_launches)
+
+
+def phase17(tmp, started, smi):
+    """Phase 17: wait for its chain (start_phase17), then (a) and (b)."""
+    rc, lines = started.wait()
+    chain_s = lines[-1][0] - started.t0 if lines else 0.0
+    print(f"  [p17_chain] exit {rc}, its last line {chain_s:.1f} s after its start")
+    if rc != 0:
+        print("\n".join(line for _, line in lines[-40:]))
+        fail(f"phase 17: the chain failed ({rc})")
+    secs, dur = p17_sections(lines)
+    print(f"  wall seconds by step: " + ", ".join(f"{k} {v:.1f}" for k, v in dur.items()))
+    print("  (a) the NeRSemble capture path")
+    rec = dict(chain_s=chain_s, steps=dur, nersemble=nersemble_path(tmp, secs, dur, smi))
+    print("  (b) the USC dress rehearsal (drivers/pipeline.py --recipe usc)")
+    rec["usc"] = usc_rehearsal(tmp, secs, smi)
+    return rec
+
+
+def phase17_alone():
+    """`python3 chip_smoke.py --phase17`: build the kernels and run phase 17
+    alone."""
+    from hairgs_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    for name, r in kernels.build().items():
+        print(f"  {name}: built in {r['seconds']:.1f} s")
+    smi = smi_line()
+    print(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p17_") as tmp:
+        rec = phase17(tmp, start_phase17(tmp), smi)
+    print(f"  total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"phase17": rec}, default=str))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
@@ -3458,6 +3881,10 @@ def main():
         return phase15_alone(int(sys.argv[2]), float(sys.argv[3]) if sys.argv[3:] else 0)
     if sys.argv[1:2] == ["--phase16"]:
         return phase16_alone(int(sys.argv[2]), float(sys.argv[3]) if sys.argv[3:] else 0)
+    if sys.argv[1:2] == ["--phase17"]:
+        return phase17_alone()
+    if sys.argv[1:2] == ["--nersemble-capture"]:
+        return write_nersemble_capture(sys.argv[2])
     from hairgs_tpu_torch import kernels
     from hairgs_tpu_torch.bench_scene import build_bench_scene
     from hairgs_tpu_torch.core.camera import stack_cameras
@@ -3715,6 +4142,10 @@ def main():
     p16_run = start_phase16(p16_dir.name, P16_STAGE1, P16_STAGE3)
     print(f"phase 16 started: the 1k recipe through drivers/pipeline.py --recipe 1k "
           f"(Stage I {P16_STAGE1}, Stage III {P16_STAGE3} iterations), beside phases 11-15")
+    p17_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_p17_")
+    p17_run = start_phase17(p17_dir.name)
+    print("phase 17 started: a NeRSemble-layout capture, its parse on the card and on the "
+          "CPU, Stage I on it, and drivers/pipeline.py --recipe usc, beside phases 11-16")
 
     # phase 12 continues from phase 11's capture and model directory
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_stages_")
@@ -3747,10 +4178,10 @@ def main():
         tmp, dict(stage3, rows=keep3["record"].rows, loss_last=synced[-1]["loss"]), smi)
     # the render driver's kernel times (the kernels line's C = 3 entry)
     # without phase 15's Stage I on the card
-    for run in (p15_run, p16_run):
+    for run in (p15_run, p16_run, p17_run):
         run.pause()
     phase13["render_driver"] = render_driver_check(tmp, keep3, smi)
-    for run in (p15_run, p16_run):
+    for run in (p15_run, p16_run, p17_run):
         run.pause(False)
     phase13["gabor"] = gabor_check(tmp, keep1, smi)
     phase13["usc_parse"] = usc_parse_check(tmp, smi)
@@ -3786,6 +4217,15 @@ def main():
     print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s after phase 15, "
           f"{p16_run.seconds:.1f} s of its chain beside phases 11-15")
     aa = phase16["kernels"]
+
+    print("phase 17: the NeRSemble capture path and the USC dress rehearsal "
+          "(drivers/pipeline.py --recipe usc)")
+    t_phase = time.perf_counter()
+    phase17_rec = phase17(p17_dir.name, p17_run, smi)
+    p17_dir.cleanup()
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s after phase 16, "
+          f"{phase17_rec['chain_s']:.1f} s of its chain beside phases 11-16")
+    ner = phase17_rec["nersemble"]
 
     src = "hairgs_tpu_torch/csrc/"
     kernels_line = {"kernels": [
@@ -3823,6 +4263,13 @@ def main():
            **{f: aa[k][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                     "bound_by")},
            "library_ms": None} for k in ("composite_fwd", "composite_bwd")),
+        {"name": "composite_fwd_nersemble", "route": "cuda",
+         "source": src + "composite_fwd.cu",
+         "replaces": "hairgs_tpu/render/pallas_composite.py:153",
+         "launches": ner["stage1"]["launches"]["composite_fwd"],
+         **{f: ner["kernel"][f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                          "bound_by")},
+         "library_ms": None},
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"step_ms": ms_step, "it_per_s": n_timed / dt,
@@ -3831,6 +4278,7 @@ def main():
                       "stage1_driver": stage1, "stage2_merge": stage2,
                       "stage3_driver": stage3, "phase13": phase13,
                       "phase14": phase14, "phase15": phase15, "phase16": phase16,
+                      "phase17": phase17_rec,
                       "probe_device_ms": probe_device_ms, "card": smi},
                      default=str))
     print(json.dumps(kernels_line))

@@ -116,13 +116,23 @@ def _camera_from_colmap(cam, E, device):
     return make_camera(R, E[:3, 3], fovx=fovx, fovy=fov, device=device)
 
 
+# the GT renders' default tables
+GT_TABLES = dict(max_tiles_per_gaussian=16, max_pairs_per_tile=1024, chunk=32)
+
+
+def default_gt_config(device) -> RasterConfig:
+    """GT_TABLES on the kernel path (the paged compositor) on a card, on the
+    XLA path elsewhere; forward renders only, so no statistics rows."""
+    return RasterConfig(**GT_TABLES, use_pallas=resolve_device(device).type == "cuda",
+                        viewspace_stats=False)
+
+
 def _render_strand_channels(gauss, cam, E, raster_cfg, device):
     """The fused render of one view: (channels (H, W, 7) numpy, camera,
     the renderer's output dict)."""
     camera = _camera_from_colmap(cam, E, device)
     w, h = int(cam.width), int(cam.height)
-    cfg = raster_cfg or RasterConfig(max_tiles_per_gaussian=16,
-                                     max_pairs_per_tile=1024, chunk=32)
+    cfg = raster_cfg or RasterConfig(**GT_TABLES)
     feats = np.concatenate(
         [gauss["colors"], np.ones((gauss["colors"].shape[0], 1), np.float32),
          gauss["directions"]], axis=1,

@@ -63,6 +63,17 @@ def branching_tips(model) -> int:
     return sum(int(degree[s[-1, 1]] != 1) for s in model.strands_info.list_strands)
 
 
+def new_endpoints_on_strands(model, first_new: int) -> int:
+    """How many endpoints numbered from `first_new` on (each new segment of
+    a growth event adds one) lie on a strand of the model's strands info: a
+    new segment counts in the metrics only if the walk after the event
+    puts it on a strand, which it does not while it stays background."""
+    if not model.strands_info.list_strands:
+        return 0
+    ids = np.unique(np.concatenate(model.strands_info.list_strands).ravel())
+    return int((ids >= first_new).sum())
+
+
 def laplacian_smooth(model, lam: float):
     """One pass over each strand's polyline of three or more points: an
     interior point moves to (1 - lam) p + lam (prev + next) / 2, computed
@@ -83,7 +94,8 @@ def laplacian_smooth(model, lam: float):
 
 def main(argv=None):
     """Grow, merge, smooth and save; returns a dict: the saved PLY's path,
-    the new segments of each event, the strands before and after the merge
+    the new segments of each event and how many of them the strands info
+    walked after it holds, the strands before and after the merge
     pass (None without one), the merge iterations, the count of branching
     tips before the first event and the strand metrics of the result
     (printed as the merge driver prints them; None without GT)."""
@@ -113,14 +125,19 @@ def main(argv=None):
         raise ValueError(f"{args.out} holds iteration {scene.loaded_iter} past the "
                          f"base iteration {args.base_iter}")
     model.training_setup(OptimizationConfig())
+    print(f"loaded iteration_{args.base_iter}: {model.num_segments} segments, "
+          f"{len(model.strands_info.list_strands)} strands")
     branching = branching_tips(model)
     print(f"strands whose tip goes on into another segment (not grown): {branching}")
 
-    grown = []
+    grown, joined = [], []
     for ev in range(args.events):
+        first_new = model.num_endpoints
         n = hair_growing(model, growth_length=args.growth_length)
         grown.append(n)
         print(f"growth event {ev + 1}: +{n} tip segments ({model.num_segments} total)")
+        joined.append(new_endpoints_on_strands(model, first_new))
+        print(f"  of them in the recomputed strands info: {joined[-1]}")
         if n == 0:
             break
 
@@ -148,7 +165,8 @@ def main(argv=None):
 
     out_ply = scene.save(args.events)  # Scene.save adds loaded_iter
     print(f"saved grown checkpoint ({sum(grown)} new segments) -> {out_ply}")
-    return dict(path=out_ply, grown=grown, strands=strands, merge_iterations=merge_iters,
+    return dict(path=out_ply, grown=grown, joined=joined, strands=strands,
+                merge_iterations=merge_iters,
                 branching_tips=branching, metrics=metrics)
 
 

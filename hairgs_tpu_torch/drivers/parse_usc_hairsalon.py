@@ -12,9 +12,13 @@ the train driver.
 
 The views are rendered by the port's own splatting renderer (thin opaque
 Gaussian segments) instead of the reference's OpenGL line renderer, on
-`--device` ("cuda" unless the CPU is asked for); the orientation maps come
-from the analytic projection of the rendered strand directions or from the
-Gabor bank (`--orientation gabor`, the reference's method).
+`--device` ("cuda" unless the CPU is asked for), with generate_dataset's
+default tables: on a card through the compositor kernels (the paged path),
+on the CPU through the XLA path. Each sample prints the worst overflow
+counters over its views (a render that drops pairs drops strands) and, on
+a card, the kernels' launches. The orientation maps come from the analytic
+projection of the rendered strand directions or from the Gabor bank
+(`--orientation gabor`, the reference's method).
 """
 
 import argparse
@@ -48,12 +52,14 @@ def main(argv=None):
     args = build_parser().parse_args(sys.argv[1:] if argv is None else argv)
 
     from hairgs_tpu_torch.data.head import load_head_from_usc_dataset
-    from hairgs_tpu_torch.data.synthetic import generate_dataset
+    from hairgs_tpu_torch.data.synthetic import default_gt_config, generate_dataset
     from hairgs_tpu_torch.data.usc import load_hair_from_usc_dataset
+    from hairgs_tpu_torch.render import composite_pairs
 
     head_path = os.path.join(args.dataset_path, "head_model.obj")
     head = load_head_from_usc_dataset(head_path) if os.path.exists(head_path) else None
 
+    cfg = default_gt_config(args.device)
     written = []
     for sample in args.samples:
         data_path = os.path.join(
@@ -66,15 +72,21 @@ def main(argv=None):
             data_path, hsv_spectre_color=args.hsv, pct_strands=args.pct_strands
         )
         out = os.path.join(args.output_path, f"{sample:05d}")
+        overflow = []
         generate_dataset(
             out, hair,
             head_verts=head.verts if head is not None else None,
             num_cameras=args.cameras, width=args.width, height=args.height,
             cam_z=args.cam_z, orientation_source=args.orientation,
-            init_points=args.init_points, device=args.device,
+            init_points=args.init_points, raster_cfg=cfg, device=args.device,
+            overflow=overflow,
         )
+        worst = {k: max(v[k] for v in overflow) for k in overflow[0]}
         print(f"sample {sample}: dataset written to {out} "
-              f"({hair.edges.shape[0]} GT segments)")
+              f"({hair.edges.shape[0]} GT segments); worst over {len(overflow)} views "
+              f"{worst}")
+        if cfg.use_pallas:
+            print(f"[kernels] launches {composite_pairs.launches}")
         written.append(out)
     return written
 

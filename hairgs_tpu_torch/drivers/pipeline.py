@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """The full reconstruction of one scene (counterpart of
-run_full_pipeline_single.sh, scripts/run_reference_schedule.sh and
-scripts/run_reference_schedule_1k.sh): Stage I (Gaussian fit) -> Stage II
-(merge) -> [Stage II.5 (growth)] -> Stage III (strand-graph fit, resuming
-from the hair PLY) -> evaluation of the last checkpoint.
+run_full_pipeline_single.sh, scripts/run_reference_schedule.sh,
+scripts/run_reference_schedule_1k.sh and scripts/usc_dress_rehearsal.sh):
+Stage I (Gaussian fit) -> Stage II (merge) -> [Stage II.5 (growth)] ->
+Stage III (strand-graph fit, resuming from the hair PLY) -> evaluation of
+the last checkpoint.
 
     python3 -m hairgs_tpu_torch.drivers.pipeline -s <scene> -m <out> \\
-        [--synthetic] [--recipe 512|1k] [--stages stage1,merge,grow,stage3,eval] \\
+        [--synthetic] [--recipe 512|1k|usc] [--stages stage1,merge,grow,stage3,eval] \\
         [--data_device cuda|cpu] [train flags...]
 
 Each stage is a child process `python3 -m hairgs_tpu_torch.drivers.<driver>`
@@ -49,6 +50,18 @@ evaluates that. `--stages` picks among them (default all five):
 
     python3 -m hairgs_tpu_torch.drivers.pipeline --recipe 1k \\
         -s _runs/syn150_1k/data -m _runs/syn150_1k/model
+
+`--recipe usc` is usc_dress_rehearsal.sh, the reference-scale rehearsal:
+in the run directory, a USC-HairSalon sample of 10 000 strands x 100
+points (`drivers/synthesize_usc_sample.py`, into raw/, log synth.log), the
+USC parser at 16 views of 1000x1000 on `--data_device` (into dataset/,
+whose 00001/ must be `-s`; log parse.log), a 500-iteration Stage I
+(USC_STAGE1, log fit.log) and the eval driver on its last PLY (eval.txt),
+each step skipped when its output is there; done.txt at the end. Its
+stages are stage1 and eval (the sample and the parse run first):
+
+    python3 -m hairgs_tpu_torch.drivers.pipeline --recipe usc \\
+        -s _runs/usc_rehearsal/dataset/00001 -m _runs/usc_rehearsal/model
 """
 
 import os
@@ -69,7 +82,9 @@ TITLES = {"stage1": "Stage I: Gaussian splatting fit",
           "stage3": "Stage III: strand-graph optimization",
           "eval": "Evaluation",
           "grow_final": "Growth of the final model",
-          "grow_final_eval": "Evaluation of the grown final model"}
+          "grow_final_eval": "Evaluation of the grown final model",
+          "sample": "USC-HairSalon sample (10 000 strands x 100 points)",
+          "parse": "USC-HairSalon parse (16 views at 1000x1000)"}
 # run_reference_schedule.sh:15-25
 SYNTHETIC = dict(num_strands=150, points_per_strand=24, seed=0, num_cameras=16,
                  width=512, height=512)
@@ -82,10 +97,13 @@ RECIPE_1K_COMMON = ["--max_tiles_per_gaussian", "64", "--freeze_tile_budget",
                     "--antialiasing", "--alpha_min", "0.00001", "--logger", "none"]
 RECIPE_1K_STAGE3 = ["--async_topology", "--densify_grad_threshold", "0.0004"]
 RECIPE_1K_TARGET = 30000  # the train driver's default --iterations
-DEFAULT_STAGES = {"512": STAGES, "1k": CHAIN}
-# the GT renders' tables: generate_dataset's default sizes, on the kernel
-# path on a card
-GT_TABLES = dict(max_tiles_per_gaussian=16, max_pairs_per_tile=1024, chunk=32)
+# usc_dress_rehearsal.sh:20,26-27,40-43: the sample, the parse, Stage I
+USC_SAMPLE = 1
+USC_PARSE = ["--cameras", "16", "--width", "1000", "--height", "1000"]
+USC_STAGE1 = ["--logger", "none", "--iterations", "500", "--position_lr_max_steps",
+              "30000", "--max_tiles_per_gaussian", "64", "--capacity_round", "131072",
+              "--save_frequency", "500", "--eval_frequency", "250"]
+DEFAULT_STAGES = {"512": STAGES, "1k": CHAIN, "usc": ("stage1", "eval")}
 
 
 def build_parser() -> ArgumentParser:
@@ -96,9 +114,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--synthetic", action="store_true",
                         help="write the reference scene to -s first, unless "
                              "one is there (the 1k recipe always does)")
-    parser.add_argument("--recipe", choices=("512", "1k"), default="512",
-                        help="run_reference_schedule.sh (512) or "
-                             "run_reference_schedule_1k.sh (1k)")
+    parser.add_argument("--recipe", choices=("512", "1k", "usc"), default="512",
+                        help="run_reference_schedule.sh (512), "
+                             "run_reference_schedule_1k.sh (1k) or "
+                             "usc_dress_rehearsal.sh (usc)")
     parser.add_argument("--stages", default=None,
                         help="the stages to run, in the chain's order "
                              f"({','.join(CHAIN)}; default: the recipe's)")
@@ -117,6 +136,9 @@ def parse(argv):
                          f"{args.stages!r}")
     if stages != [s for s in CHAIN if s in stages]:
         raise ValueError(f"--stages must keep the chain's order {CHAIN}")
+    if args.recipe == "usc" and not set(stages) <= set(DEFAULT_STAGES["usc"]):
+        raise ValueError(f"--recipe usc runs the stages {DEFAULT_STAGES['usc']}, "
+                         f"got {stages}")
     return args, stages, common
 
 
@@ -178,7 +200,8 @@ def stage_argv(stage, args, common):
 
 def stage_module(stage) -> str:
     name = {"stage1": "train", "stage3": "train", "grow": "grow_and_save",
-            "grow_final": "grow_and_save"}.get(stage, "eval" if "eval" in stage else stage)
+            "grow_final": "grow_and_save", "sample": "synthesize_usc_sample",
+            "parse": "parse_usc_hairsalon"}.get(stage, "eval" if "eval" in stage else stage)
     return "hairgs_tpu_torch.drivers." + name
 
 
@@ -252,10 +275,57 @@ def recipe_1k_steps(stage, args, common):
              os.path.join(run, "grown_final_eval.txt"), done)]
 
 
+def usc_scene_steps(args):
+    """usc_dress_rehearsal.sh's steps 0-1 (recipe_1k_steps' form): the
+    sample into <run>/raw unless its .data file is there, then the parse
+    into the parent of -s unless -s holds a COLMAP scene."""
+    run = run_dir(args)
+    raw = os.path.join(run, "raw")
+    dataset, sample = os.path.split(os.path.normpath(args.source_path))
+    if sample != f"{USC_SAMPLE:05d}":
+        raise ValueError(f"--recipe usc parses sample {USC_SAMPLE} into the parent of -s, "
+                         f"so -s must end in {USC_SAMPLE:05d}: {args.source_path}")
+    steps = []
+    if not os.path.exists(os.path.join(raw, "hairstyles", f"strands{USC_SAMPLE:05d}.data")):
+        steps.append(("sample", lambda: ["--out", raw, "--sample", str(USC_SAMPLE)],
+                      os.path.join(run, "synth.log"), None))
+    if not os.path.exists(os.path.join(args.source_path, "sparse", "0", "points3D.bin")):
+        steps.append(("parse", lambda: ["-d", raw, "-o", dataset, "--samples",
+                                        str(USC_SAMPLE), *USC_PARSE,
+                                        "--device", args.data_device],
+                      os.path.join(run, "parse.log"), None))
+    return steps
+
+
+def recipe_usc_steps(stage, args, common):
+    """usc_dress_rehearsal.sh's steps 2-3 (recipe_1k_steps' form): Stage I
+    unless the model directory has a point_cloud/, the eval driver on its
+    last PLY unless eval.txt is there; done.txt after the eval."""
+    run = run_dir(args)
+    if stage == "stage1":
+        if os.path.isdir(os.path.join(args.model_path, "point_cloud")):
+            return f"{args.model_path}/point_cloud exists"
+        return [("stage1", lambda: ["-s", args.source_path, "-m", args.model_path,
+                                    *USC_STAGE1, *common, "--data_device", args.data_device],
+                 os.path.join(run, "fit.log"), None)]
+    if not iterations_of(args.model_path):
+        return "no checkpoint to evaluate"
+    if os.path.exists(os.path.join(run, "eval.txt")):
+        return "eval.txt exists"
+
+    def done():
+        with open(os.path.join(run, "done.txt"), "w") as f:
+            f.write(time.strftime("%c") + "\n")
+    return [("eval", lambda: eval_argv(args, args.model_path), os.path.join(run, "eval.txt"),
+             done)]
+
+
 def stage_steps(stage, args, common):
     """The steps of one stage (recipe_1k_steps' form)."""
     if args.recipe == "1k":
         return recipe_1k_steps(stage, args, common)
+    if args.recipe == "usc":
+        return recipe_usc_steps(stage, args, common)
     steps = [(stage, lambda: stage_argv(stage, args, common), None, None)]
     if stage == "grow":
         out = os.path.join(run_dir(args), "grown_postmerge")
@@ -268,15 +338,17 @@ def write_reference_scene(path: str, device: str = "cuda", size: int = 512):
     """run_reference_schedule.sh's scene at size x size pixels, rendered on
     `device`; prints the GT segment count and the worst overflow counters
     over the views (a GT render that drops pairs drops strands)."""
-    from hairgs_tpu_torch.data.synthetic import generate_dataset, synthetic_test_hair
-    from hairgs_tpu_torch.render.renderer import RasterConfig
+    from hairgs_tpu_torch.data.synthetic import (
+        default_gt_config,
+        generate_dataset,
+        synthetic_test_hair,
+    )
 
     s = SYNTHETIC
     hair = synthetic_test_hair(num_strands=s["num_strands"],
                                points_per_strand=s["points_per_strand"], seed=s["seed"])
     overflow = []
-    cfg = RasterConfig(**GT_TABLES, use_pallas=device.startswith("cuda"),
-                       viewspace_stats=False)
+    cfg = default_gt_config(device)
     generate_dataset(path, hair, num_cameras=s["num_cameras"], width=size,
                      height=size, raster_cfg=cfg, device=device, overflow=overflow)
     worst = {k: max(v[k] for v in overflow) for k in overflow[0]}
@@ -322,8 +394,16 @@ def run(argv=None) -> int:
               flush=True)
         return rc
 
+    def chain():
+        """(stage, its steps), each decided when the stages before it ran."""
+        if args.recipe == "usc":
+            os.makedirs(run_dir(args), exist_ok=True)
+            yield "scene", usc_scene_steps(args)
+        for stage in stages:
+            yield stage, stage_steps(stage, args, common)
+
     t_all = time.perf_counter()
-    if (args.synthetic or args.recipe == "1k") and not os.path.exists(
+    if args.recipe != "usc" and (args.synthetic or args.recipe == "1k") and not os.path.exists(
             os.path.join(args.source_path, "sparse", "0", "points3D.bin")):
         code = ("import sys; from hairgs_tpu_torch.drivers.pipeline import "
                 "write_reference_scene as w; w(sys.argv[1], sys.argv[2], int(sys.argv[3]))")
@@ -331,8 +411,7 @@ def run(argv=None) -> int:
                   ["-c", code, args.source_path, args.data_device, str(size)])
         if rc:
             return rc
-    for stage in stages:
-        steps = stage_steps(stage, args, common)
+    for stage, steps in chain():
         if isinstance(steps, str):
             print(f"[pipeline] {stage} skipped: {steps}", flush=True)
             continue

@@ -851,6 +851,8 @@ def training(mp, op, gp, rt, args, logger=None):
         from hairgs_tpu_torch.render.composite_pairs import launches
 
         print(f"[kernels] rank {rank} launches {launches}")
+        print(f"[memory] rank {rank} peak {torch.cuda.max_memory_allocated(device) / 2**30:.3f} "
+              f"GiB (torch.cuda.max_memory_allocated)")
     if profiler is not None:
         stop_profiler()
     if vis3d_plotter is not None:  # reference train.py:263-265

@@ -130,12 +130,13 @@ def checkpoint(tmp_path_factory):
 def _jax_grow(argv, monkeypatch, capsys):
     """scripts/grow_and_save.py as __main__, each growth event with the
     strands whose tip goes on into another segment left out of JAX's
-    strands info. Returns (new segments per event, strands left out at the
-    first event, the script's output)."""
+    strands info. Returns (new segments per event, how many of them the
+    strands info walked after the event holds, strands left out at the first
+    event, the script's output)."""
     import hairgs_tpu.topo.graph_ops as jops
 
     original = jops.hair_growing
-    grown, left_out = [], []
+    grown, joined, left_out = [], [], []
 
     def grow_without_branching(model, **kw):
         pairs = np.asarray(model.host_arrays()["endpoint_pairs"], np.int64)
@@ -147,7 +148,10 @@ def _jax_grow(argv, monkeypatch, capsys):
             list_strands=[s for s, k in zip(info.list_strands, keep) if k],
             list_strands_segments_id=[r for r, k in zip(
                 info.list_strands_segments_id, keep) if k])
+        first_new = model.num_endpoints
         grown.append(original(model, **kw))
+        ids = np.unique(np.concatenate(model.strands_info.list_strands).ravel())
+        joined.append(int((ids >= first_new).sum()))
         return grown[-1]
 
     monkeypatch.setattr(jops, "hair_growing", grow_without_branching)
@@ -158,7 +162,7 @@ def _jax_grow(argv, monkeypatch, capsys):
         runpy.run_path(str(ROOT / "scripts" / "grow_and_save.py"), run_name="__main__")
     finally:
         sys.stdout = stdout
-    return grown, left_out[0], capsys.readouterr().out
+    return grown, joined, left_out[0], capsys.readouterr().out
 
 
 def _eval(package, scene, ply, monkeypatch):
@@ -184,9 +188,10 @@ def test_grow_driver_matches_jax(checkpoint, tmp_path, monkeypatch, capsys, even
     flags = ["--events", events, "--merge_iters", merge_iters, "--smooth_lam", smooth_lam]
     argv = lambda out: ["-s", scene, "-m", model, "--out", str(tmp_path / out), *flags]
     got = grow_and_save.main([*argv("torch"), "--data_device", "cpu"])
-    j_grown, j_left_out, j_out = _jax_grow(argv("jax"), monkeypatch, capsys)
+    j_grown, j_joined, j_left_out, j_out = _jax_grow(argv("jax"), monkeypatch, capsys)
 
     assert got["grown"] == j_grown and got["grown"][0] > 0
+    assert got["joined"] == j_joined and got["joined"][0] > 0
     assert got["branching_tips"] == j_left_out == n_branching
     want = f"iteration_{BASE + int(events)}"
     j_ply = str(tmp_path / "jax" / "point_cloud" / want / "point_cloud.ply")

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of hairgs_tpu_torch (the
 drivers, the hair model, the topology, the parallel package and the native
 library's wrapper too) and the module scope of chip_smoke.py, in a fresh interpreter, loads
-nothing of JAX, of the JAX package or of scripts/, and leaves TF32 switched off for
-matmuls and for cuDNN's convolutions."""
+nothing of JAX, of the JAX package, of scripts/ or of OpenCV (cv2, which the card's
+machine does not have), and leaves TF32 switched off for matmuls and for cuDNN's
+convolutions."""
 
 import json
 import os
@@ -25,6 +26,7 @@ print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m, mod in list(sys.modules.items())
                       if m.startswith("jax")
+                      or m == "cv2" or m.startswith("cv2.")
                       or m == "hairgs_tpu" or m.startswith("hairgs_tpu.")
                       or m == "scripts" or m.startswith("scripts.")
                       or (getattr(mod, "__file__", None) or "").startswith(scripts)),
@@ -48,9 +50,10 @@ def test_port_imports_nothing_of_jax():
                  "data.head", "data.cy", "data.flame", "visualization",
                  "network_gui", "parallel", "parallel.mesh", "parallel.slab",
                  "parallel.multihost", "drivers.convert_output", "drivers.pipeline",
-                 "drivers.grow_and_save"):
+                 "drivers.grow_and_save", "drivers.parse_nersemble",
+                 "drivers.synthesize_usc_sample"):
         assert f"hairgs_tpu_torch.{name}" in report["modules"], name
-    assert len(report["modules"]) >= 73
+    assert len(report["modules"]) >= 75
     assert report["foreign"] == []
     assert report["tf32"] is False
     assert report["cudnn_tf32"] is False

@@ -9,7 +9,9 @@ equal where the distances are untied by more than that); normals
 |cos| > 1 - 1e-5; parameters after `create_from_pcd` and densification
 within 1e-6, the initial log-scales plus what that rounding of the 3-NN
 distances moves them by; densify info, counts, the remapped Adam moments
-and the step exactly equal.
+and the step exactly equal. The Stage-I chains under the 1k recipe's flags:
+the loss within 1e-4 relative up to the first event (the pipeline test's
+gate), with JAX's initial 3-NN distances given to the port.
 """
 
 import dataclasses
@@ -20,6 +22,16 @@ import pytest
 import torch
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in parallel workers, and the
+    idle OpenMP threads of a torch pool spin on cores the others need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
           "opacity", "mask")
 
@@ -279,3 +291,59 @@ def test_model_is_a_dataclass_with_jax_fields():
     tf = {f.name for f in dataclasses.fields(GaussianModel)}
     assert jf <= tf and tf - jf == {"device"}
     assert GaussianModel(device="cpu").dist_to_scale_factor == JModel().dist_to_scale_factor
+
+
+def test_stage1_chains_agree_under_the_1k_flags_from_one_init(tmp_path, monkeypatch):
+    """The principal axis is discontinuous where scales tie: `argmax` over
+    the three scales picks the first of equal values, and the kNN init
+    makes all three equal. The port's 3-NN distances differ from JAX's in
+    the last bits (the |q|^2 + |p|^2 - 2 q.p products round in another
+    order, the bound of test_create_from_pcd_matches_jax), and on the
+    reference scene at 128 px under --antialiasing --alpha_min 1e-5 one
+    Gaussian's scales then tie the other way by iteration 3: the orientation
+    loss parts by 2e-3. So the port's init takes JAX's distances here, and
+    the two drivers' chains must then agree within the unchanged 1e-4 loss
+    gate to the first densify event under the 1k recipe's COMMON flags. The
+    image metrics at the end are stubbed in both (16 renders each; they
+    decide nothing here)."""
+    import random
+
+    import hairgs_tpu.evaluation.image_metrics as jim
+    import hairgs_tpu.logging_utils as jlog
+    import hairgs_tpu_torch.evaluation.image_metrics as tim
+    import hairgs_tpu_torch.logging_utils as tlog
+    import hairgs_tpu_torch.ops.knn as tknn
+    from hairgs_tpu.ops.knn import mean_sq_dist_3nn as jmsd
+    from hairgs_tpu_torch.drivers import pipeline
+    from hairgs_tpu_torch.io.dataset import read_colmap_scene_info
+    from test_torch_port_pipeline import (
+        _Recorder,
+        _run_stage,
+        _same_run,
+        feed_jax_init_distances,
+    )
+
+    scene = str(tmp_path / "data")
+    pipeline.write_reference_scene(scene, "cpu", 128)
+    pts = read_colmap_scene_info(scene).points.astype(np.float32)
+    d_jax = np.asarray(jmsd(jnp.asarray(pts)))
+    d_port = tknn.mean_sq_dist_3nn(torch.from_numpy(pts)).numpy()
+    assert not np.array_equal(d_port, d_jax)  # the rounding the feed removes
+    feed_jax_init_distances(monkeypatch)
+    for m in (jim, tim):
+        monkeypatch.setattr(m, "evaluate_image_metrics", lambda *a, **k: {})
+    # without the feed these flags part the chains at iteration 3
+    # (11.8159 against 11.8403)
+    flags = [*pipeline.RECIPE_1K_COMMON, "--iterations", "3", "--position_lr_max_steps",
+             "10", "--log_interval", "1", "--densify_from_iter", "2",
+             "--densification_interval", "3", "--ip", "", "--data_device", "cpu"]
+    recs = {}
+    for package in ("jax", "torch"):
+        recs[package] = rec = _Recorder()
+        monkeypatch.setattr(jlog if package == "jax" else tlog, "get_logger",
+                            lambda args, rec=rec: rec)
+        random.seed(0)
+        np.random.seed(0)
+        _run_stage(package, "stage1", ["-s", scene, "-m", str(tmp_path / package), *flags],
+                   monkeypatch, recs[package])
+    assert _same_run(recs["jax"], recs["torch"]) == [3]

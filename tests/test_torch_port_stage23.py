@@ -289,3 +289,55 @@ def test_async_topology_on_a_hair_model_raises(merged, tmp_path, monkeypatch):
     f1 = next(k for k in rj.metrics if k.startswith("f1"))
     np.testing.assert_allclose(rt.metrics[f1], rj.metrics[f1], rtol=0, atol=1e-3)
     assert all(torch.isfinite(p).all() for p in mt.params)
+
+
+def _strands(info):
+    return [s.tolist() for s in info.list_strands]
+
+
+def test_strands_walked_at_an_event_equal_the_checkpoints(merged, tmp_path, monkeypatch):
+    """The strands info a Stage-III run ends with, walked in-process at its
+    last topology event (at the run's last iteration here), equals the
+    strands each package's Scene walks again when it loads the checkpoint
+    saved there: the walk on load is the walk at events. After that event
+    the in-training evaluations read the event's strands info
+    (`model.strands_info`), not the checkpoint's: once a segment leaves the
+    foreground (opacity under its threshold, as training does between
+    events), the checkpoint's strands differ from the event's and equal a
+    fresh walk of the model."""
+    from types import SimpleNamespace
+
+    from hairgs_tpu.scene import Scene as JScene
+    from hairgs_tpu_torch.models.hair import OPACITY_TH
+    from hairgs_tpu_torch.scene import Scene
+    from hairgs_tpu_torch.topo.strands import compute_strands_info
+
+    source, dirs, _ = merged
+    path = str(tmp_path / "run")
+    shutil.copytree(dirs["torch"], path)
+    extra = ("--merge_interval", "5", "--num_points_strand", "2",
+             "--densify_grad_threshold", "1e-3", "--capacity_round", "2048")
+    rec, scene, model = _train("torch", _stage_argv(source, path, 15, extra), monkeypatch)
+    end = scene.loaded_iter + 15
+    assert max(r[0] for r in rec.rows if r[2]) == end
+    args = SimpleNamespace(source_path=source, model_path=path, images="images",
+                           resolution=-1, sh_degree=0, data_device="cpu", eval=False)
+
+    def loaded():
+        return [_strands(S(args, shuffle=False).gaussians.strands_info)
+                for S in (Scene, JScene)]
+
+    at_event = _strands(model.strands_info)
+    assert len(at_event) > 1
+    assert loaded() == [at_event, at_event]
+    # one middle segment of a strand of 3+ leaves the foreground: the
+    # checkpoint saved after it splits that strand, the event's info does not
+    rows = next(r for r in model.strands_info.list_strands_segments_id if len(r) >= 3)
+    opacity = model.params.opacity.clone()
+    opacity[int(rows[1])] = float(np.log(OPACITY_TH / 2 / (1 - OPACITY_TH / 2)))
+    model.params = model.params._replace(opacity=opacity)
+    model.save_ply(os.path.join(path, "point_cloud", f"iteration_{end + 1}",
+                                "point_cloud.ply"))
+    fresh = _strands(compute_strands_info(model, store=False))
+    assert len(fresh) == len(at_event) + 1
+    assert loaded() == [fresh, fresh]
