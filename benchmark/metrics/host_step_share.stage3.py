@@ -1,0 +1,3 @@
+"""host_step_share.stage3: spans.host_step_share, in the cells that report `stage3_it_s`."""
+
+from benchmark.spans import host_step_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""syncs_per_it.stage3: spans.syncs_per_it, in the cells that report `stage3_it_s`."""
+
+from benchmark.spans import syncs_per_it as read  # noqa: F401

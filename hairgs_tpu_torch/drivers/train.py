@@ -45,10 +45,10 @@ the viewer while the others wait at a barrier:
         -m <out> --view_batch K [--gauss_shard G]
 """
 
+import contextlib
 import os
 import random
 import sys
-import time
 import uuid
 from argparse import ArgumentParser
 
@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from hairgs_tpu_torch import telemetry
 from hairgs_tpu_torch.config import (
     GeneralConfig,
     ModelConfig,
@@ -185,14 +186,16 @@ def use_device_eval(device_eval: str, device: torch.device) -> bool:
 
 def _sync(device):
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with telemetry.span(telemetry.TRAIN_SYNC):
+            torch.cuda.synchronize(device)
 
 
 def _pull_metrics(metrics) -> dict:
     """The step's scalar metrics on the host, in one transfer."""
-    keys = list(metrics)
-    vals = torch.stack([metrics[k].detach().reshape(()).to(torch.float64)
-                        for k in keys]).tolist()
+    with telemetry.span(telemetry.TRAIN_SYNC):
+        keys = list(metrics)
+        vals = torch.stack([metrics[k].detach().reshape(()).to(torch.float64)
+                            for k in keys]).tolist()
     return dict(zip(keys, vals))
 
 
@@ -447,8 +450,9 @@ def training(mp, op, gp, rt, args, logger=None):
             return tuple(torch.tensor(a.astype(np.int64) if a.dtype != np.bool_
                                       else a, device=device) for a in arrays)
 
-        pairs, valid = dev(*smooth_pair_indices(model.strands_info))
-        magnet = dev(*magnet_indices(model)) if op.lambda_magnet > 0 else None
+        with telemetry.span(telemetry.TOPO_STRAND_TABLES):
+            pairs, valid = dev(*smooth_pair_indices(model.strands_info))
+            magnet = dev(*magnet_indices(model)) if op.lambda_magnet > 0 else None
         return pairs, valid, magnet
 
     smooth_pairs, smooth_valid, magnet_idx = strand_tables()
@@ -541,7 +545,6 @@ def training(mp, op, gp, rt, args, logger=None):
     rt.log_interval = max(1, rt.log_interval)
     budget_ctl = TileBudgetController(rt.max_tiles_per_gaussian)
     tilecap_ctl = TilePairCapController(rt.max_pairs_per_tile)
-    start_time = time.time()
     iteration = 0
     prev_iter = 0
     step_count = 0
@@ -558,6 +561,10 @@ def training(mp, op, gp, rt, args, logger=None):
         exactly `iteration % interval == 0`; for K>1 each boundary fires once."""
         return iteration // interval > prev_iter // interval
 
+    # the loop's span, for the closing line (an ExitStack keeps the loop
+    # at its indentation)
+    loop = contextlib.ExitStack()
+    run = loop.enter_context(telemetry.span(telemetry.TRAIN_LOOP))
     while iteration < op.iterations:
         prev_iter = iteration
         iteration += view_batch
@@ -617,17 +624,19 @@ def training(mp, op, gp, rt, args, logger=None):
         if mesh is not None and view_batch > 1:
             cam_input = shard_view_batch(cam_input, mesh)
 
-        t0 = time.time()
-        if is_hair:
-            model.params, model.stats, model.opt_state, metrics, image = step_fn(
-                model.params, model.graph, model.stats, model.opt_state,
-                cam_input, iteration, smooth_pairs, smooth_valid,
-                magnet_idx=magnet_idx)
-        else:
-            model.params, model.stats, model.opt_state, metrics, image = step_fn(
-                model.params, model.stats, model.opt_state, model.active,
-                cam_input, iteration)
-        info.elapsed_time = (time.time() - t0) * 1000.0
+        with telemetry.span(telemetry.TRAIN_STEP) as step:
+            if is_hair:
+                model.params, model.stats, model.opt_state, metrics, image = step_fn(
+                    model.params, model.graph, model.stats, model.opt_state,
+                    cam_input, iteration, smooth_pairs, smooth_valid,
+                    magnet_idx=magnet_idx)
+            else:
+                model.params, model.stats, model.opt_state, metrics, image = step_fn(
+                    model.params, model.stats, model.opt_state, model.active,
+                    cam_input, iteration)
+        # the host's time in the step: its enqueue and its waits at the
+        # step's synchronising calls, not the step's time on the device
+        info.elapsed_time = step.ms
 
         # a host read waits for the device: only at the logging cadence
         sync_now = (
@@ -725,64 +734,73 @@ def training(mp, op, gp, rt, args, logger=None):
         due_grow = is_hair and crossed(op.growth_interval) and grow_allowed()
         size_th = (op.prune_max_radii_2d if iteration > op.opacity_reset_interval
                    else None)
+        final = iteration >= op.iterations
         if topo_worker is not None:
             # densify and merge are computed on the worker from a snapshot
-            # and installed by poll() between later steps. The opacity reset
-            # and growth change surviving rows on the host, so they stay
-            # synchronous and settle a flight first; so do a new launch and
-            # the final iteration, whose launch is settled at once so the
-            # final evaluation and checkpoint see it, as in a synchronous run
-            t_topo = time.perf_counter()
-            final = iteration >= op.iterations
-            topo_changed = topo_worker.poll(
-                force=due_reset or due_grow or due_densify or due_merge or final,
-                training_info=info)
-            if due_reset:
-                hair_reset_opacity(model)
-            if due_grow:
-                hair_growing(model, info, growth_length=op.growth_length)
-                growth_events_done += 1
-                topo_changed = True
-            if due_densify or due_merge:
-                topo_worker.launch(densify=due_densify, merge=due_merge,
-                                   extent=scene.cameras_extent, size_th=size_th)
-                if final:
-                    topo_worker.poll(force=True, training_info=info)
-                    topo_changed = True
+            # and installed between later steps once its thread is done.
+            # The opacity reset and growth change surviving rows on the
+            # host, so they stay synchronous and settle a flight first; so
+            # do a new launch and the final iteration, whose launch is
+            # settled at once so the final evaluation and checkpoint see
+            # it, as in a synchronous run
+            event = (due_reset or due_grow or due_densify or due_merge
+                     or (final and topo_worker.in_flight) or topo_worker.done)
         else:
             # synchronous between steps; a densify and a merge in the same
-            # iteration share one host mirror
-            topo_changed = due_densify or due_merge or due_grow
-            arrays_cache = None
-            if topo_changed:
+            # iteration share one host mirror. An opacity reset alone is
+            # no event
+            event = due_densify or due_merge or due_grow
+            if event:
                 # time the event alone: the queued steps finish first
                 _sync(device)
-                t_topo = time.perf_counter()
-            if due_densify:
-                if is_hair:
-                    _, arrays_cache = hair_densification(
-                        model, scene.cameras_extent, size_th, info,
-                        return_arrays=True)
-                else:
-                    model.densification(scene.cameras_extent, size_th, info)
-            if due_reset:
-                if is_hair:
+        topo_changed = False
+        with (telemetry.span(telemetry.TOPO_EVENT) if event
+              else contextlib.nullcontext()) as event_span:
+            if topo_worker is not None:
+                if event:
+                    topo_changed = topo_worker.poll(force=True, training_info=info)
+                if due_reset:
                     hair_reset_opacity(model)
-                    arrays_cache = None  # the opacity plane changed on the device
-                else:
-                    model.reset_opacity()
-            if due_merge:
-                hair_merging(model, info, arrays=arrays_cache)
-            if due_grow:
-                hair_growing(model, info, growth_length=op.growth_length)
-                growth_events_done += 1
+                if due_grow:
+                    hair_growing(model, info, growth_length=op.growth_length)
+                    growth_events_done += 1
+                    topo_changed = True
+                if due_densify or due_merge:
+                    topo_worker.launch(densify=due_densify, merge=due_merge,
+                                       extent=scene.cameras_extent, size_th=size_th)
+                    if final:
+                        topo_worker.poll(force=True, training_info=info)
+                        topo_changed = True
+            else:
+                topo_changed = event
+                arrays_cache = None
+                if due_densify:
+                    if is_hair:
+                        _, arrays_cache = hair_densification(
+                            model, scene.cameras_extent, size_th, info,
+                            return_arrays=True)
+                    else:
+                        model.densification(scene.cameras_extent, size_th, info)
+                if due_reset:
+                    if is_hair:
+                        hair_reset_opacity(model)
+                        arrays_cache = None  # the opacity plane changed on the device
+                    else:
+                        model.reset_opacity()
+                if due_merge:
+                    hair_merging(model, info, arrays=arrays_cache)
+                if due_grow:
+                    hair_growing(model, info, growth_length=op.growth_length)
+                    growth_events_done += 1
+            if topo_changed:
+                if is_hair:
+                    smooth_pairs, smooth_valid, magnet_idx = strand_tables()
+                _sync(device)
+        if event:
+            info.topology_ms = event_span.ms
         if due_reset and not gp.quiet:
             print(f"[densify] iter {iteration}: opacity reset")
         if topo_changed:
-            if is_hair:
-                smooth_pairs, smooth_valid, magnet_idx = strand_tables()
-            _sync(device)
-            info.topology_ms = (time.perf_counter() - t_topo) * 1e3
             check_replicas(iteration)
             if not gp.quiet:
                 size = (f"{model.num_segments} segments, "
@@ -859,7 +877,8 @@ def training(mp, op, gp, rt, args, logger=None):
         vis3d_plotter.close()
     if gui is not None:
         gui.close()
-    total = time.time() - start_time
+    loop.close()
+    total = run.seconds
     print(f"Training completed in {total:.1f}s "
           f"({iteration / max(total, 1e-9):.2f} it/s, "
           f"{step_count / max(total, 1e-9):.2f} steps/s)")

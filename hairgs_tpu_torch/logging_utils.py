@@ -17,6 +17,10 @@ import numpy as np
 @dataclasses.dataclass
 class TrainingInfo:
     iter: int = 0
+    # ms the host spent in the iteration's step (the `train/step` span of
+    # telemetry.py), logged as general/iter_time: its enqueue, and its waits
+    # wherever the step reads from the device; the device may still be
+    # running the step when it ends
     elapsed_time: float = 0.0
     loss: Optional[float] = None
     loss_dict: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -27,7 +31,8 @@ class TrainingInfo:
     image_metrics: Optional[Dict[str, float]] = None
     composed_image: Optional[np.ndarray] = None
     pred: Optional[Any] = None
-    # wall ms of this iteration's densification event (None without one)
+    # wall ms of this iteration's topology event, its `topo/event` span
+    # (None without one)
     topology_ms: Optional[float] = None
     # whether eval_metrics came from the device (evaluation/device_metrics.py)
     eval_on_device: bool = False
@@ -44,6 +49,11 @@ class Logger:
 
 
 class TensorBoardLogger(Logger):
+    """The scalars of utils/logging.py. `general/iter_time` is the host's
+    time in the step in ms (TrainingInfo.elapsed_time: its enqueue and its
+    in-step waits for the device), not the step's time on the device;
+    `densification/t_*` are the topology phases' spans in seconds."""
+
     def __init__(self, log_dir: str):
         from torch.utils.tensorboard import SummaryWriter
 

@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 
+from hairgs_tpu_torch import telemetry
 from hairgs_tpu_torch.core.maths import safe_norm
 from hairgs_tpu_torch.core.sh import eval_sh
 from hairgs_tpu_torch.render.binning import (
@@ -95,10 +96,11 @@ def render(camera, *, means3d, opacity, features, scales=None, rotations=None,
     if config.use_pallas:
         prep, binning, geo_rows, feat_rows = paged_pair_table(camera, **common)
         max_chunks = config.max_pairs_per_tile // config.chunk
-        tiles, tiles_photo, trans_tiles = composite_pairs(
-            geo_rows, feat_rows, binning.starts, binning.counts, grid_w, grid_h,
-            ts, config.chunk, max_chunks, features.shape[-1],
-            with_stats=config.viewspace_stats, alpha_min=config.alpha_min)
+        with telemetry.span(telemetry.RENDER_COMPOSITE):
+            tiles, tiles_photo, trans_tiles = composite_pairs(
+                geo_rows, feat_rows, binning.starts, binning.counts, grid_w, grid_h,
+                ts, config.chunk, max_chunks, features.shape[-1],
+                with_stats=config.viewspace_stats, alpha_min=config.alpha_min)
         counters = dict(overflow_capacity=binning.overflow_capacity,
                         pairs_demand=binning.pairs_demand,
                         tile_counts=binning.counts)
@@ -147,32 +149,35 @@ def _xla_composite(camera, *, means3d, opacity, features, scales, rotations,
     ts = config.tile_size
     grid_w = (width + ts - 1) // ts
     grid_h = (height + ts - 1) // ts
-    prep = preprocess(
-        means3d, scales, rotations, camera, width, height, ts, active=active,
-        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
-        mean2d_offset=mean2d_offset, opacity=opacity,
-        antialiasing=config.antialiasing, alpha_min=config.alpha_min)
-    opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
-    if config.antialiasing:
-        opa_eff = opa_eff * prep.compensation
-    q_cut = torch.log(torch.clamp(opa_eff.detach(), min=1e-12) / config.alpha_min)
-    binning = bin_gaussians(
-        prep.rect, prep.depth, prep.valid, grid_w, grid_h,
-        config.max_tiles_per_gaussian, config.max_pairs_per_tile,
-        xy=prep.xy.detach(), conic=prep.conic.detach(), q_cut=q_cut,
-        tile_size=ts)
-    gid = binning.gather_idx.long()
-    pv = binning.pair_valid
-    # zero every invalid slot before any product: clamped gather indices
-    # may alias rows whose (inactive) attributes are NaN, and 0 * NaN would
-    # poison the forward and the backward
-    zero = torch.zeros((), dtype=torch.float32, device=gid.device)
-    xy_g = torch.where(pv[..., None], prep.xy[gid], zero)
-    con_g = torch.where(pv[..., None], prep.conic[gid], zero)
-    opa_g = torch.where(pv, opa_eff[gid], zero)
-    feat_g = torch.where(pv[..., None], features[gid], zero)
-    tiles, trans_tiles = composite(xy_g, con_g, opa_g, feat_g, grid_w, grid_h,
-                                   ts, config.chunk, config.alpha_min)
+    with telemetry.span(telemetry.RENDER_PREPROCESS):
+        prep = preprocess(
+            means3d, scales, rotations, camera, width, height, ts, active=active,
+            scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+            mean2d_offset=mean2d_offset, opacity=opacity,
+            antialiasing=config.antialiasing, alpha_min=config.alpha_min)
+        opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
+        if config.antialiasing:
+            opa_eff = opa_eff * prep.compensation
+        q_cut = torch.log(torch.clamp(opa_eff.detach(), min=1e-12) / config.alpha_min)
+    with telemetry.span(telemetry.RENDER_BINNING):
+        binning = bin_gaussians(
+            prep.rect, prep.depth, prep.valid, grid_w, grid_h,
+            config.max_tiles_per_gaussian, config.max_pairs_per_tile,
+            xy=prep.xy.detach(), conic=prep.conic.detach(), q_cut=q_cut,
+            tile_size=ts)
+        gid = binning.gather_idx.long()
+        pv = binning.pair_valid
+        # zero every invalid slot before any product: clamped gather indices
+        # may alias rows whose (inactive) attributes are NaN, and 0 * NaN
+        # would poison the forward and the backward
+        zero = torch.zeros((), dtype=torch.float32, device=gid.device)
+        xy_g = torch.where(pv[..., None], prep.xy[gid], zero)
+        con_g = torch.where(pv[..., None], prep.conic[gid], zero)
+        opa_g = torch.where(pv, opa_eff[gid], zero)
+        feat_g = torch.where(pv[..., None], features[gid], zero)
+    with telemetry.span(telemetry.RENDER_COMPOSITE):
+        tiles, trans_tiles = composite(xy_g, con_g, opa_g, feat_g, grid_w, grid_h,
+                                       ts, config.chunk, config.alpha_min)
     return prep, binning, tiles, trans_tiles
 
 
@@ -187,45 +192,47 @@ def paged_pair_table(camera, *, means3d, opacity, features, scales, rotations,
     ts = config.tile_size
     grid_w = (width + ts - 1) // ts
     grid_h = (height + ts - 1) // ts
-    prep = preprocess(
-        means3d, scales, rotations, camera, width, height, ts, active=active,
-        scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
-        mean2d_offset=None, opacity=opacity,
-        antialiasing=config.antialiasing, alpha_min=config.alpha_min)
+    with telemetry.span(telemetry.RENDER_PREPROCESS):
+        prep = preprocess(
+            means3d, scales, rotations, camera, width, height, ts, active=active,
+            scale_modifier=scale_modifier, cov3d_precomp=cov3d_precomp,
+            mean2d_offset=None, opacity=opacity,
+            antialiasing=config.antialiasing, alpha_min=config.alpha_min)
 
-    opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
-    if config.antialiasing:
-        opa_eff = opa_eff * prep.compensation
-    # a tile whose minimum exponent exceeds ln(opa / alpha_min) can never
-    # pass the alpha gate
-    q_cut = torch.log(torch.clamp(opa_eff.detach(), min=1e-12) / config.alpha_min)
+        opa_eff = torch.where(prep.valid, opacity, torch.zeros_like(opacity))
+        if config.antialiasing:
+            opa_eff = opa_eff * prep.compensation
+        # a tile whose minimum exponent exceeds ln(opa / alpha_min) can never
+        # pass the alpha gate
+        q_cut = torch.log(torch.clamp(opa_eff.detach(), min=1e-12) / config.alpha_min)
 
-    binning = bin_gaussians_sorted(
-        prep.rect, prep.depth, prep.valid, grid_w, grid_h,
-        config.max_tiles_per_gaussian, config.max_pairs_per_tile,
-        config.chunk, xy=prep.xy.detach(), conic=prep.conic.detach(),
-        q_cut=q_cut, tile_size=ts, pair_capacity=config.pair_capacity)
-    # NaN hygiene for inactive rows
-    feat_eff = torch.where(prep.valid[:, None], features, torch.zeros_like(features))
-    aux = None
-    if mean2d_offset is not None:
-        # CUDA dL_dmean2D units: pixel grads x (0.5W, 0.5H)
-        aux = torch.stack([mean2d_offset[:, 0] * (0.5 * width),
-                           mean2d_offset[:, 1] * (0.5 * height)], dim=1)
-    geo_packed = pack_geo_rows(prep.xy, prep.conic, opa_eff, aux=aux)
-    feat_packed = pad_feat_rows(feat_eff, config.feat_bf16)
-    r_max = config.max_tiles_per_gaussian
+    with telemetry.span(telemetry.RENDER_BINNING):
+        binning = bin_gaussians_sorted(
+            prep.rect, prep.depth, prep.valid, grid_w, grid_h,
+            config.max_tiles_per_gaussian, config.max_pairs_per_tile,
+            config.chunk, xy=prep.xy.detach(), conic=prep.conic.detach(),
+            q_cut=q_cut, tile_size=ts, pair_capacity=config.pair_capacity)
+        # NaN hygiene for inactive rows
+        feat_eff = torch.where(prep.valid[:, None], features, torch.zeros_like(features))
+        aux = None
+        if mean2d_offset is not None:
+            # CUDA dL_dmean2D units: pixel grads x (0.5W, 0.5H)
+            aux = torch.stack([mean2d_offset[:, 0] * (0.5 * width),
+                               mean2d_offset[:, 1] * (0.5 * height)], dim=1)
+        geo_packed = pack_geo_rows(prep.xy, prep.conic, opa_eff, aux=aux)
+        feat_packed = pad_feat_rows(feat_eff, config.feat_bf16)
+        r_max = config.max_tiles_per_gaussian
 
-    def with_zero_row(t):
-        # zero row: the source of padding slots (virtual index n * r_max)
-        return torch.cat([t, torch.zeros((1, t.shape[1]), dtype=t.dtype,
-                                         device=t.device)])
+        def with_zero_row(t):
+            # zero row: the source of padding slots (virtual index n * r_max)
+            return torch.cat([t, torch.zeros((1, t.shape[1]), dtype=t.dtype,
+                                             device=t.device)])
 
-    geo_paged = gather_pairs(with_zero_row(geo_packed), binning.paged_src,
-                             binning.inv_paged, r_max)
-    feat_paged = gather_pairs(with_zero_row(feat_packed), binning.paged_src,
-                              binning.inv_paged, r_max)
-    return prep, binning, geo_paged.T.contiguous(), feat_paged.T.contiguous()
+        geo_paged = gather_pairs(with_zero_row(geo_packed), binning.paged_src,
+                                 binning.inv_paged, r_max)
+        feat_paged = gather_pairs(with_zero_row(feat_packed), binning.paged_src,
+                                  binning.inv_paged, r_max)
+        return prep, binning, geo_paged.T.contiguous(), feat_paged.T.contiguous()
 
 
 def sh_to_color(features_dc, features_rest, means3d, cam_center,

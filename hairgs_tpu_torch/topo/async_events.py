@@ -30,9 +30,10 @@ steps it overlaps.
 """
 
 import threading
-import time
 
 import torch
+
+from hairgs_tpu_torch import telemetry
 
 
 class TopologyWorker:
@@ -48,6 +49,11 @@ class TopologyWorker:
     @property
     def in_flight(self) -> bool:
         return self._thread is not None
+
+    @property
+    def done(self) -> bool:
+        """The flight's thread has ended: its update waits for poll()."""
+        return self._thread is not None and not self._thread.is_alive()
 
     def launch(self, *, densify: bool, merge: bool, extent: float, size_th):
         """Snapshot the model and start computing an event. A previous
@@ -93,16 +99,16 @@ class TopologyWorker:
         from hairgs_tpu_torch.topo.graph_ops import compute_topology_update
 
         try:
-            t0 = time.perf_counter()
-            pulled = finish_pull(cut, ready)
-            t_pull = time.perf_counter()
-            stats = {k[len("stats/"):]: pulled.pop(k)
-                     for k in list(pulled) if k.startswith("stats/")}
-            upd = compute_topology_update(
-                self.model, arrays=pulled, stats=stats, **kwargs)
+            with telemetry.span(telemetry.TOPO_ASYNC_PULL) as pull:
+                pulled = finish_pull(cut, ready)
+            with telemetry.span(telemetry.TOPO_ASYNC_COMPUTE) as compute:
+                stats = {k[len("stats/"):]: pulled.pop(k)
+                         for k in list(pulled) if k.startswith("stats/")}
+                upd = compute_topology_update(
+                    self.model, arrays=pulled, stats=stats, **kwargs)
             upd.info.update(
-                t_async_pull=round(t_pull - t0, 3),
-                t_async_compute=round(time.perf_counter() - t_pull, 3),
+                t_async_pull=round(pull.seconds, 3),
+                t_async_compute=round(compute.seconds, 3),
             )
             self._result = upd
         except Exception as e:  # raised again on the main thread by poll()

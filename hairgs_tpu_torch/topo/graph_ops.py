@@ -16,12 +16,12 @@ new rows start at zero — matching _cat/_prune_tensor_in_optimizer
 (l.482-532). No strategy draws a random number.
 """
 
-import time
 from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
 
+from hairgs_tpu_torch import telemetry
 from hairgs_tpu_torch.core.maths import MIN_VAL
 from hairgs_tpu_torch.models.gaussian import FG_BIN_TH, OPACITY_TH
 
@@ -364,34 +364,34 @@ def hair_densification(model, extent, max_screen_size, training_info=None,
     With return_arrays=True also returns the post-install host mirror so a
     merge in the same topology event skips its pull.
 
-    Phase wall times land in densification_info as t_pull/t_strategies/
-    t_install/t_walk (seconds, each phase's device work finished)."""
+    The phase spans' wall times land in densification_info as t_pull/
+    t_strategies/t_install/t_walk (seconds, each phase's device work
+    finished)."""
     from hairgs_tpu_torch.topo.strands import compute_strands_info
 
-    t0 = time.perf_counter()
-    st = HairHostState(model)
-    t_pull = time.perf_counter()
-    with np.errstate(invalid="ignore", divide="ignore"):
-        grads = st.stats["xyz_grad_accum"] / st.stats["denom"]
-    grads = np.nan_to_num(grads, nan=0.0, posinf=0.0)
-    info = {}
-    _clone_strategy(st, grads, extent, model.training_args, info)
-    _split_strategy(st, grads, extent, model.training_args, info)
-    _merge_collapsed_segments_v2(st, info)
-    _prune_strategy(st, extent, max_screen_size, model.training_args, info,
-                    avoid_connected=True)
-    t_strat = time.perf_counter()
-    st.install()
-    _sync(model)
-    t_install = time.perf_counter()
+    with telemetry.span(telemetry.TOPO_PULL) as pull:
+        st = HairHostState(model)
+    with telemetry.span(telemetry.TOPO_STRATEGIES) as strategies:
+        with np.errstate(invalid="ignore", divide="ignore"):
+            grads = st.stats["xyz_grad_accum"] / st.stats["denom"]
+        grads = np.nan_to_num(grads, nan=0.0, posinf=0.0)
+        info = {}
+        _clone_strategy(st, grads, extent, model.training_args, info)
+        _split_strategy(st, grads, extent, model.training_args, info)
+        _merge_collapsed_segments_v2(st, info)
+        _prune_strategy(st, extent, max_screen_size, model.training_args, info,
+                        avoid_connected=True)
+    with telemetry.span(telemetry.TOPO_INSTALL) as install:
+        st.install()
+        _sync(model)
     arrays = st.as_arrays()
-    compute_strands_info(model, arrays=arrays)
-    t_walk = time.perf_counter()
+    with telemetry.span(telemetry.TOPO_WALK) as walk:
+        compute_strands_info(model, arrays=arrays)
     info.update(
-        t_pull=round(t_pull - t0, 3),
-        t_strategies=round(t_strat - t_pull, 3),
-        t_install=round(t_install - t_strat, 3),
-        t_walk=round(t_walk - t_install, 3),
+        t_pull=round(pull.seconds, 3),
+        t_strategies=round(strategies.seconds, 3),
+        t_install=round(install.seconds, 3),
+        t_walk=round(walk.seconds, 3),
     )
     if training_info is not None:
         training_info.densification_info.update(info)
@@ -402,31 +402,38 @@ def hair_merging(model, training_info=None, arrays=None):
     """Greedy endpoint merging (l.1079-1096).
 
     `arrays`: post-install host mirror from a densification in the same
-    topology event (model.strands_info is then already fresh)."""
+    topology event (model.strands_info is then already fresh).
+
+    The phase spans' wall times land in densification_info as
+    t_merge_prep (the pull, and the walk without `arrays`),
+    t_merge_candidates (the search) and t_merge_apply (the surgery, its
+    install and walk, the device finished), in seconds."""
     from hairgs_tpu_torch.topo.merge import compute_endpoint_pair_to_merge
     from hairgs_tpu_torch.topo.strands import compute_strands_info
 
-    t0 = time.perf_counter()
-    if arrays is None:
-        st = HairHostState(model)
-        compute_strands_info(model, arrays=st.as_arrays())
-    else:
+    with telemetry.span(telemetry.TOPO_PULL) as pull:
         st = HairHostState(model, arrays=arrays)
-    t_prep = time.perf_counter()
-    pairs = compute_endpoint_pair_to_merge(model, st=st)
-    t_cand = time.perf_counter()
+    prep = pull.seconds
+    if arrays is None:
+        with telemetry.span(telemetry.TOPO_WALK) as walk:
+            compute_strands_info(model, arrays=st.as_arrays())
+        prep += walk.seconds
+    with telemetry.span(telemetry.TOPO_MERGE_SEARCH) as search:
+        pairs = compute_endpoint_pair_to_merge(model, st=st)
     if training_info is not None:
         training_info.densification_info["merge"] = int(pairs.shape[0])
-    st.merge_endpoint_pairs(pairs)
-    st.install()
-    compute_strands_info(model, arrays=st.as_arrays())
-    _sync(model)
-    t_end = time.perf_counter()
+    with telemetry.span(telemetry.TOPO_MERGE_APPLY) as apply:
+        st.merge_endpoint_pairs(pairs)
+        with telemetry.span(telemetry.TOPO_INSTALL):
+            st.install()
+        with telemetry.span(telemetry.TOPO_WALK):
+            compute_strands_info(model, arrays=st.as_arrays())
+        _sync(model)
     if training_info is not None:
         training_info.densification_info.update(
-            t_merge_prep=round(t_prep - t0, 3),
-            t_merge_candidates=round(t_cand - t_prep, 3),
-            t_merge_apply=round(t_end - t_cand, 3),
+            t_merge_prep=round(prep, 3),
+            t_merge_candidates=round(search.seconds, 3),
+            t_merge_apply=round(apply.seconds, 3),
         )
     return pairs.shape[0]
 
@@ -440,7 +447,8 @@ def hair_growing(model, training_info=None, growth_length: float = 0.002):
 
     cfg = model.training_args
     info = model.strands_info
-    st = HairHostState(model)
+    with telemetry.span(telemetry.TOPO_PULL):
+        st = HairHostState(model)
     max_len = cfg.num_points_strand
     navg = cfg.growth_averaging_points
     new_pairs, new_eps = [], []
@@ -480,10 +488,12 @@ def hair_growing(model, training_info=None, growth_length: float = 0.002):
             np.array(new_eps, dtype=np.float32),
             {k: np.array(v, dtype=np.float32) for k, v in new_seg.items()},
         )
-        st.install()
+        with telemetry.span(telemetry.TOPO_INSTALL):
+            st.install()
     if training_info is not None:
         training_info.densification_info["grow"] = counter
-    compute_strands_info(model)
+    with telemetry.span(telemetry.TOPO_WALK):
+        compute_strands_info(model)
     return counter
 
 
@@ -559,11 +569,11 @@ def apply_topology_update(model, update: TopologyUpdate, training_info=None):
     values (any cat resets them in the reference, so the steps run during
     the flight only shorten the next accumulation window)."""
     _sync(model)  # time the install alone: the queued steps finish first
-    t0 = time.perf_counter()
-    update.st.install(carry_values=True)
-    model.strands_info = update.strands_info
-    _sync(model)
-    update.info["t_apply"] = round(time.perf_counter() - t0, 3)
+    with telemetry.span(telemetry.TOPO_ASYNC_APPLY) as apply:
+        update.st.install(carry_values=True)
+        model.strands_info = update.strands_info
+        _sync(model)
+    update.info["t_apply"] = round(apply.seconds, 3)
     if training_info is not None:
         training_info.densification_info.update(update.info)
 

@@ -14,10 +14,10 @@ loop and `_remove_complementary_rows` are their numpy oracles, run only
 when a caller passes `native=False`.
 """
 
-import time
-
 import numpy as np
 from scipy.spatial import cKDTree
+
+from hairgs_tpu_torch import telemetry
 
 
 def compute_endpoint_pair_to_merge(model, st=None, native: bool = True,
@@ -131,8 +131,9 @@ def stage2_merge_loop(model, max_iterations: int, callback=None,
     candidate pairs until none remain. The merge thresholds stay at their
     init values (the reference never calls update_learning_rate here).
 
-    callback(i, n_merged, times) gets the iteration's wall seconds:
-    `candidates` (the search alone) and `total`. viz_callback(i, pairs)
+    callback(i, n_merged, times) gets the iteration's wall seconds, from
+    its spans: `candidates` (the search alone) and `total` (the whole
+    iteration, a topology event). viz_callback(i, pairs)
     fires before the merge is applied (the pairs index the pre-merge
     endpoints): the hook for the merge-progress plots (merge.py:118-158)."""
     from hairgs_tpu_torch.topo.graph_ops import HairHostState
@@ -140,21 +141,19 @@ def stage2_merge_loop(model, max_iterations: int, callback=None,
 
     iterations = 0
     for i in range(1, max_iterations + 1):
-        t0 = time.perf_counter()
-        st = HairHostState(model)
-        t1 = time.perf_counter()
-        pairs = compute_endpoint_pair_to_merge(model, st=st, native=native)
-        t_cand = time.perf_counter() - t1
-        if pairs.shape[0] == 0:
-            break
-        if viz_callback is not None:
-            viz_callback(i, pairs)
-        st.merge_endpoint_pairs(pairs)
-        st.install()
-        # the mirror holds what install() wrote: no second pull
-        compute_strands_info(model, arrays=st.as_arrays(), native=native)
+        with telemetry.span(telemetry.TOPO_EVENT) as event:
+            st = HairHostState(model)
+            with telemetry.span(telemetry.TOPO_MERGE_SEARCH) as search:
+                pairs = compute_endpoint_pair_to_merge(model, st=st, native=native)
+            if pairs.shape[0] == 0:
+                break
+            if viz_callback is not None:
+                viz_callback(i, pairs)
+            st.merge_endpoint_pairs(pairs)
+            st.install()
+            # the mirror holds what install() wrote: no second pull
+            compute_strands_info(model, arrays=st.as_arrays(), native=native)
         iterations = i
         if callback is not None:
-            callback(i, pairs.shape[0],
-                     dict(candidates=t_cand, total=time.perf_counter() - t0))
+            callback(i, pairs.shape[0], dict(candidates=search.seconds, total=event.seconds))
     return iterations

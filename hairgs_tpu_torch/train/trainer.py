@@ -12,7 +12,7 @@ pull gives those gradients, as in JAX.
 
 import torch
 
-from hairgs_tpu_torch import resolve_device
+from hairgs_tpu_torch import resolve_device, telemetry
 from hairgs_tpu_torch.core.camera import camera_view
 from hairgs_tpu_torch.core.schedules import expon_lr
 from hairgs_tpu_torch.losses.photometric import (
@@ -85,13 +85,14 @@ def _update_stats(stats: GaussianStats, radii, offset_grad, active):
     if radii.ndim == 1:
         radii = radii[None]
         offset_grad = offset_grad[None]
-    vis = (radii > 0) & active[None]
-    best = torch.amax(torch.where(vis, radii, torch.zeros_like(radii)), dim=0)
-    max_radii2d = torch.maximum(stats.max_radii2d, best)
-    gnorm = torch.linalg.vector_norm(offset_grad[..., :2], dim=-1, keepdim=True)
-    xyz_grad_accum = stats.xyz_grad_accum + torch.sum(
-        torch.where(vis[..., None], gnorm, torch.zeros_like(gnorm)), dim=0)
-    denom = stats.denom + torch.sum(vis[..., None], dim=0).to(stats.denom.dtype)
+    with telemetry.span(telemetry.ADAM):
+        vis = (radii > 0) & active[None]
+        best = torch.amax(torch.where(vis, radii, torch.zeros_like(radii)), dim=0)
+        max_radii2d = torch.maximum(stats.max_radii2d, best)
+        gnorm = torch.linalg.vector_norm(offset_grad[..., :2], dim=-1, keepdim=True)
+        xyz_grad_accum = stats.xyz_grad_accum + torch.sum(
+            torch.where(vis[..., None], gnorm, torch.zeros_like(gnorm)), dim=0)
+        denom = stats.denom + torch.sum(vis[..., None], dim=0).to(stats.denom.dtype)
     return GaussianStats(max_radii2d=max_radii2d, xyz_grad_accum=xyz_grad_accum,
                          denom=denom)
 
@@ -131,20 +132,24 @@ def render_loss_and_grads(render_inputs_fn, params, camera, active, opt_cfg,
     p = type(params)(*leaves)
     offset0 = torch.zeros((active.shape[0], 2), dtype=torch.float32,
                           device=active.device, requires_grad=True)
-    out = render_fn(camera, **render_inputs_fn(p), active=active,
-                    mean2d_offset=offset0, width=width, height=height,
-                    config=raster_cfg)
-    photo_loss, photo_parts = _photometric_loss(out["render_photo"], camera, opt_cfg)
-    aux_loss, aux_parts = _auxiliary_loss(out["render"], camera, opt_cfg)
-    loss = photo_loss + aux_loss
+    with telemetry.span(telemetry.RENDER_INPUTS):
+        inputs = render_inputs_fn(p)
+    out = render_fn(camera, **inputs, active=active, mean2d_offset=offset0,
+                    width=width, height=height, config=raster_cfg)
+    with telemetry.span(telemetry.LOSS):
+        photo_loss, photo_parts = _photometric_loss(out["render_photo"], camera, opt_cfg)
+        aux_loss, aux_parts = _auxiliary_loss(out["render"], camera, opt_cfg)
+        loss = photo_loss + aux_loss
     photo_offset_grad = None
-    if not raster_cfg.use_pallas:
-        # XLA path: "render_photo" is "render", so the total-loss pull gives
-        # total-loss offset gradients; pull the photometric loss alone first
-        # for the statistics (the paged path gets them from the aux rows)
-        (photo_offset_grad,) = torch.autograd.grad(photo_loss, offset0,
-                                                   retain_graph=True)
-    grads = torch.autograd.grad(loss, leaves + [offset0], allow_unused=True)
+    with telemetry.span(telemetry.BACKWARD):
+        if not raster_cfg.use_pallas:
+            # XLA path: "render_photo" is "render", so the total-loss pull
+            # gives total-loss offset gradients; pull the photometric loss
+            # alone first for the statistics (the paged path gets them from
+            # the aux rows)
+            (photo_offset_grad,) = torch.autograd.grad(photo_loss, offset0,
+                                                       retain_graph=True)
+        grads = torch.autograd.grad(loss, leaves + [offset0], allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for g, t in zip(grads, leaves + [offset0])]
     if photo_offset_grad is not None:
@@ -254,7 +259,7 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
         lr_tree = gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(xyz=lr_tree.xyz.item())
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.span(telemetry.ADAM):
             params, opt_state = adam_step(params, grads, opt_state, lr_tree)
         return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
 
@@ -264,9 +269,10 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
 def _endpoint_term(loss_fn, params):
     """Value and endpoint gradient of a regularizer on params.endpoints
     alone (no render path); the other leaves get no gradient from it."""
-    endpoints = params.endpoints.detach().requires_grad_(True)
-    value = loss_fn(endpoints)
-    (grad,) = torch.autograd.grad(value, endpoints)
+    with telemetry.span(telemetry.STRAND_TERMS):
+        endpoints = params.endpoints.detach().requires_grad_(True)
+        value = loss_fn(endpoints)
+        (grad,) = torch.autograd.grad(value, endpoints)
     return value.detach(), grad
 
 
@@ -326,7 +332,7 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
         lr_tree = hair_lr_tree(opt_cfg, step, spatial_lr_scale)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(endpoints=lr_tree.endpoints.item())
-        with torch.no_grad():
+        with torch.no_grad(), telemetry.span(telemetry.ADAM):
             params, opt_state = adam_step(params, grads, opt_state, lr_tree)
         return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
 
