@@ -1,5 +1,6 @@
 """Small math helpers (counterpart of hairgs_tpu/core/maths.py)."""
 
+import functools
 import math
 import statistics
 
@@ -17,6 +18,21 @@ def safe_norm(x, dim=-1, keepdim=False, eps=1e-24):
     """L2 norm as sqrt(sum(x^2) + eps): zero gradient at the origin, where
     torch.linalg.norm's would be NaN and poison masked-out rows."""
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + eps)
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # autograd may save it for a backward
+        return torch.full((), value, dtype=dtype, device=device)
+
+
+def constant_like(value: float, t: torch.Tensor) -> torch.Tensor:
+    """`value` as a 0-d tensor of t's dtype on t's device, made once per
+    (value, dtype, device) by a fill on the device: a step that compares
+    against it copies nothing from the host, so it never waits for the
+    device and a CUDA graph can capture it. Read-only: every caller shares
+    it."""
+    return _constant(value, t.dtype, t.device)
 
 
 def normal_icdf(q):

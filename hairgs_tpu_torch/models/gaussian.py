@@ -25,6 +25,7 @@ import torch
 from hairgs_tpu_torch import resolve_device
 from hairgs_tpu_torch.core.camera import Camera
 from hairgs_tpu_torch.core.maths import (
+    constant_like,
     dist_to_scale_factor_to_pval,
     pval_to_dist_to_scale_factor,
     safe_norm,
@@ -62,7 +63,7 @@ class GaussianStats(NamedTuple):
 def gaussian_activations(p: GaussianParams):
     # safe norm: zero-initialized padding rows get zero (not NaN) gradients
     qnorm = torch.maximum(safe_norm(p.rotation, dim=-1, keepdim=True),
-                          p.rotation.new_tensor(1e-12))
+                          constant_like(1e-12, p.rotation))
     return {
         "scaling": torch.exp(p.scaling),
         "rotation": p.rotation / qnorm,

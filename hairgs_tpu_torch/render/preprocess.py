@@ -10,6 +10,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from hairgs_tpu_torch.core.maths import constant_like
 from hairgs_tpu_torch.core.transforms import build_rotation
 
 
@@ -135,15 +136,15 @@ def preprocess(mean3d, scales, rotations, camera, width: int, height: int,
         dim=-1)
 
     mid = 0.5 * (cov[..., 0] + cov[..., 2])
-    lambda1 = mid + torch.sqrt(torch.maximum(mid * mid - det, det.new_tensor(0.1)))
+    lambda1 = mid + torch.sqrt(torch.maximum(mid * mid - det, constant_like(0.1, det)))
     radius = torch.ceil(3.0 * torch.sqrt(lambda1))
 
     xy = torch.stack([ndc2pix(p_proj[..., 0], width),
                       ndc2pix(p_proj[..., 1], height)], dim=-1)
     if mean2d_offset is not None:
         # gradient hook in CUDA dL_dmean2D units (pixel grads x 0.5W, 0.5H)
-        xy = xy + mean2d_offset * torch.tensor(
-            [0.5 * width, 0.5 * height], dtype=xy.dtype, device=xy.device)
+        xy = xy + torch.stack([mean2d_offset[..., 0] * (0.5 * width),
+                               mean2d_offset[..., 1] * (0.5 * height)], dim=-1)
 
     def tile_rect(r):
         # auxiliary.h:46-56

@@ -33,10 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# drivers/train.py
+# drivers/train.py (train/capture: train/graphed.py)
 TRAIN_LOOP = "train/loop"  # the iterations of training(), for its closing line
 TRAIN_STEP = "train/step"  # one step_fn call: its enqueue and in-step waits
 TRAIN_SYNC = "train/sync"  # a wait for the device: the metric pull, a synchronise
+TRAIN_CAPTURE = "train/capture"  # a step's warm-up and CUDA-graph capture
 TOPO_EVENT = "topo/event"  # a topology event between steps (info.topology_ms)
 TOPO_STRAND_TABLES = "topo/strand_tables"  # the smoothness tables' rebuild
 # train/trainer.py
@@ -64,7 +65,7 @@ NAMES = (TRAIN_LOOP, TRAIN_STEP, TRAIN_SYNC, TOPO_EVENT, TOPO_STRAND_TABLES,
          RENDER_INPUTS, LOSS, BACKWARD, STRAND_TERMS, ADAM, RENDER_PREPROCESS,
          RENDER_BINNING, RENDER_COMPOSITE, TOPO_PULL, TOPO_STRATEGIES,
          TOPO_INSTALL, TOPO_WALK, TOPO_MERGE_SEARCH, TOPO_MERGE_APPLY,
-         TOPO_ASYNC_PULL, TOPO_ASYNC_COMPUTE, TOPO_ASYNC_APPLY)
+         TOPO_ASYNC_PULL, TOPO_ASYNC_COMPUTE, TOPO_ASYNC_APPLY, TRAIN_CAPTURE)
 PREFIX = "hairgs::"  # of the profiler ranges
 CAPACITY = 1 << 18  # spans the ring keeps
 

@@ -36,6 +36,7 @@ from hairgs_tpu_torch.models.hair import HairParams, hair_render_inputs
 from hairgs_tpu_torch.ops.ssim import ssim
 from hairgs_tpu_torch.optim import adam_step
 from hairgs_tpu_torch.render.renderer import RasterConfig, render
+from hairgs_tpu_torch.train.graphed import GraphedStep
 
 
 def gaussian_lr_tree(opt_cfg, step, spatial_lr_scale):
@@ -78,21 +79,26 @@ def hair_lr_tree(opt_cfg, step, spatial_lr_scale):
     )
 
 
-def _update_stats(stats: GaussianStats, radii, offset_grad, active):
+def _update_stats(stats: GaussianStats, radii, offset_grad, active, out=None):
     """Densification statistics (scene/gaussian_model.py:675-682): max
     screen radius, accumulated viewspace-gradient norm, visit count. Takes
-    one view (radii (N,)) or a batch of views (radii (B,N))."""
+    one view (radii (N,)) or a batch of views (radii (B,N)). With `out` (a
+    GaussianStats, `stats` itself may be given) the results are written
+    into it."""
     if radii.ndim == 1:
         radii = radii[None]
         offset_grad = offset_grad[None]
+    out = GaussianStats(None, None, None) if out is None else out
     with telemetry.span(telemetry.ADAM):
         vis = (radii > 0) & active[None]
         best = torch.amax(torch.where(vis, radii, torch.zeros_like(radii)), dim=0)
-        max_radii2d = torch.maximum(stats.max_radii2d, best)
+        max_radii2d = torch.maximum(stats.max_radii2d, best, out=out.max_radii2d)
         gnorm = torch.linalg.vector_norm(offset_grad[..., :2], dim=-1, keepdim=True)
-        xyz_grad_accum = stats.xyz_grad_accum + torch.sum(
-            torch.where(vis[..., None], gnorm, torch.zeros_like(gnorm)), dim=0)
-        denom = stats.denom + torch.sum(vis[..., None], dim=0).to(stats.denom.dtype)
+        xyz_grad_accum = torch.add(stats.xyz_grad_accum, torch.sum(
+            torch.where(vis[..., None], gnorm, torch.zeros_like(gnorm)), dim=0),
+            out=out.xyz_grad_accum)
+        denom = torch.add(stats.denom, torch.sum(vis[..., None], dim=0).to(
+            stats.denom.dtype), out=out.denom)
     return GaussianStats(max_radii2d=max_radii2d, xyz_grad_accum=xyz_grad_accum,
                          denom=denom)
 
@@ -200,9 +206,10 @@ def _per_view(fn, camera):
 COUNTERS = ("overflow_pairs", "overflow_tiles", "overflow_capacity", "pairs_demand")
 
 
-def _merge_views(reducer, loss, grads, offset_grad, aux, stats, active):
+def _merge_views(reducer, loss, grads, offset_grad, aux, stats, active, out=None):
     """The step's view results with the statistics folded in: (loss, grads,
-    loss_dict, stats, counters). A `reducer` (parallel/mesh.py::MeshReducer)
+    loss_dict, stats, counters), the statistics written into `out` where
+    given (one process only). A `reducer` (parallel/mesh.py::MeshReducer)
     merges each rank's results over the ranks first: the viewspace
     gradients (`offsets`), then the losses, gradients, this step's
     statistics and counters (`merge`)."""
@@ -210,7 +217,8 @@ def _merge_views(reducer, loss, grads, offset_grad, aux, stats, active):
     counters = {k: aux[k] for k in COUNTERS}
     if reducer is None:
         return (loss, grads, loss_dict,
-                _update_stats(stats, aux["radii"], offset_grad, active), counters)
+                _update_stats(stats, aux["radii"], offset_grad, active, out=out),
+                counters)
     offset_grad = reducer.offsets(offset_grad)
     delta = _update_stats(GaussianStats(*[torch.zeros_like(s) for s in stats]),
                           aux["radii"], offset_grad, active)
@@ -242,11 +250,17 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
     All tensors live on `device`. `step` is a Python int (its learning rate
     is then computed in float32 on the host, so the card never waits for a
     copy) or a 0-d tensor. `render_fn` and `reducer` make the parallel
-    steps of parallel/ (a depth-slab render; the merge over ranks).
+    steps of parallel/ (a depth-slab render; the merge over ranks), which
+    run eagerly. Without them the step is a `graphed.GraphedStep`: on a
+    CUDA device with one camera it is replayed as a CUDA graph, and the
+    params, stats and opt_state it returns are then its static buffers,
+    which the next step overwrites in place.
     """
     resolve_device(device)
 
-    def step_fn(params, stats, opt_state, active, camera, step):
+    def train_step(params, stats, opt_state, active, camera, lr_tree, in_place=False):
+        """The step with its learning rates given; `in_place` writes the new
+        params, stats and opt_state into the given ones."""
         def one_view(cam):
             return render_loss_and_grads(
                 lambda p: gaussian_render_inputs(p, cam.cam_center, active_sh_degree),
@@ -254,16 +268,26 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
                 render_fn=render_fn)
 
         loss, grads, offset_grad, aux = _per_view(one_view, camera)
-        loss, grads, loss_dict, stats, counters = _merge_views(
-            reducer, loss, grads, offset_grad, aux, stats, active)
-        lr_tree = gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
+        loss, grads, loss_dict, new_stats, counters = _merge_views(
+            reducer, loss, grads, offset_grad, aux, stats, active,
+            out=stats if in_place else None)
+        with torch.no_grad(), telemetry.span(telemetry.ADAM):
+            params, opt_state = adam_step(params, grads, opt_state, lr_tree,
+                                          out=(params, opt_state) if in_place else None)
+        return params, new_stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
+
+    def lr_tree_at(step):
+        return gaussian_lr_tree(opt_cfg, step, spatial_lr_scale)
+
+    def step_fn(params, stats, opt_state, active, camera, step):
+        lr_tree = lr_tree_at(step)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(xyz=lr_tree.xyz.item())
-        with torch.no_grad(), telemetry.span(telemetry.ADAM):
-            params, opt_state = adam_step(params, grads, opt_state, lr_tree)
-        return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
+        return train_step(params, stats, opt_state, active, camera, lr_tree)
 
-    return step_fn
+    if reducer is not None or render_fn is not render:
+        return step_fn
+    return GraphedStep(step_fn, train_step, lr_tree_at)
 
 
 def _endpoint_term(loss_fn, params):

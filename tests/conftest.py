@@ -19,3 +19,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
 jax.config.update("jax_default_matmul_precision", "float32")
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA device (skips without one)")

@@ -302,3 +302,58 @@ def test_training_records_a_step_span_per_step_and_its_events(ring, tiny_scene,
     assert {by_id[by_id[i][1]][0] for i, v in by_id.items()
             if v[0] in ("render/preprocess", "render/binning", "render/composite")
             and by_id[i][1] in steps} == {"train/step"}
+
+
+def _replay_share_reader():
+    """benchmark/metrics/graph_replay_share.stage1.py's `read`, loaded from
+    its file as the benchmark's harness loads it."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    path = os.path.join(root, "benchmark", "metrics", "graph_replay_share.stage1.py")
+    spec = importlib.util.spec_from_file_location("graph_replay_share_stage1", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_capture_span_and_the_graph_replay_share_on_a_ring(monkeypatch):
+    """`train/capture` is a span name; the replay share reads 100 x (1 -
+    capture steps / steps) over the window, and None where no step ever
+    captured or the program has no such span."""
+    from types import SimpleNamespace
+
+    assert telemetry.TRAIN_CAPTURE == "train/capture" in telemetry.NAMES
+    read = _replay_share_reader()
+    ms = 1_000_000
+    ctx = SimpleNamespace(logger=SimpleNamespace(t_open=1.0, t_close=2.0))
+
+    def ring_of(steps, captured, before=True):
+        r = telemetry.Ring(256)
+        i = 0
+        if before:  # the run's first step, before the window
+            r.write(telemetry.NAMES.index("train/capture"), 0, 1, 7, 100 * ms, 200 * ms)
+            r.write(telemetry.NAMES.index("train/step"), 1, -1, 7, 100 * ms, 300 * ms)
+        for k in range(steps):
+            t0 = 1000 + 100 * k
+            i += 2
+            if k in captured:
+                r.write(telemetry.NAMES.index("train/capture"), 10 + i, 11 + i, 7,
+                        (t0 + 10) * ms, (t0 + 60) * ms)
+            r.write(telemetry.NAMES.index("train/step"), 11 + i, -1, 7, t0 * ms,
+                    (t0 + 80) * ms)
+        return r
+
+    monkeypatch.setattr(telemetry, "RING", ring_of(10, {0, 7}))
+    assert read(ctx) == pytest.approx(80.0)
+    monkeypatch.setattr(telemetry, "RING", ring_of(10, set()))
+    assert read(ctx) == pytest.approx(100.0)
+    monkeypatch.setattr(telemetry, "RING", ring_of(10, set(), before=False))
+    assert read(ctx) is None
+    names = tuple(n for n in telemetry.NAMES if n != "train/capture")
+    monkeypatch.setattr(telemetry, "RING", ring_of(10, {0}))
+    monkeypatch.setattr(telemetry, "NAMES", names)
+    assert read(ctx) is None

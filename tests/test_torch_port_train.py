@@ -226,6 +226,33 @@ def _check_one_step(batched, use_pallas):
         assert torch.isfinite(getattr(tp2, name)).all(), name
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_one_train_step_makes_no_constant_from_a_host_number(use_pallas, monkeypatch):
+    """A whole Stage-I step makes no tensor from a host number: on the card
+    such a copy waits for the device, and a CUDA graph could not capture
+    it. `torch.tensor` and `Tensor.new_tensor` raise while the step runs."""
+    from hairgs_tpu_torch.models.gaussian import stats_from_numpy
+    from hairgs_tpu_torch.optim import adam_init
+    from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+
+    cam, arrays = _scene()
+    _, (tp, tactive, topt, traster, tcam) = _both_sides(cam, arrays, use_pallas)
+    tstats = stats_from_numpy(dict(max_radii2d=np.zeros(N, np.float32),
+                                   xyz_grad_accum=np.zeros((N, 1), np.float32),
+                                   denom=np.zeros((N, 1), np.float32)), CPU)
+    opt = adam_init(tp)
+    step = make_gaussian_train_step(topt, traster, width=WIDTH, height=HEIGHT,
+                                    active_sh_degree=0, device="cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor made from a host number inside the step")
+
+    monkeypatch.setattr(torch, "tensor", refuse)
+    monkeypatch.setattr(torch.Tensor, "new_tensor", refuse)
+    _, _, opt2, metrics, _ = step(tp, tstats, opt, tactive, tcam, 1)
+    assert int(opt2.step) == 1 and np.isfinite(float(metrics["loss"]))
+
+
 @pytest.mark.parametrize("n,width,height", [(500, 64, 48)])
 def test_build_bench_scene_matches_build_bench(n, width, height):
     """The same seed draws the same scene in both frameworks: parameters
