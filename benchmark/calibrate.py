@@ -55,10 +55,9 @@ def planted(spec, seed, fol, device):
     reference in TF32 and the reference with half of the pixels left out,
     each in the program's place, judged against the reference in float32
     on the views the program drew."""
-    from benchmark import capture, check, harness
+    from benchmark import check, harness
 
-    cap = capture.make(spec.config, seed, device)
-    graph = harness.start_graph(spec.config, spec.traffic, cap, seed, device)
+    cap, graph = harness.start(spec.config, spec.traffic, seed, device)
     args, _ = harness.port_args(["-s", "", *spec.config.get("flags", []),
                                  *spec.traffic["flags"]])
     opt, rt = harness.opt_values(args), harness.rt_values(args)

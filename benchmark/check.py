@@ -105,7 +105,7 @@ def reference_inputs(cap: dict, opt: dict, device, graph: dict = None):
     if graph is None:
         return views, ref.initial_leaves(cap["points"], cap["colours"], device), ref.GAUSSIANS
     return (views, stage3.initial_leaves(graph, device),
-            stage3.hair_model(graph["endpoint_pairs"], opt, device))
+            stage3.hair_model(graph, opt, device))
 
 
 def raster(rt: dict, arena_rows: int, view) -> dict:

@@ -31,6 +31,7 @@ from benchmark import trace as trace_mod
 from benchmark.window import WindowClosed, WindowLogger, live_rows, splats, tail_s_per_it
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(BENCH_DIR)
 
 
 class Cell(NamedTuple):
@@ -185,15 +186,15 @@ def run(spec: Cell, seed: int, seconds: float, traced: bool, t_start: float,
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     work = tempfile.mkdtemp(prefix=f"hairbench_{workload}_")
     try:
-        cap = capture.make(config, seed, dev)
+        cap, graph = start(config, traffic, seed, dev)
         sync()
         t_made = time.perf_counter()
         capture.write(cap, os.path.join(work, "scene"))
-        graph = start_graph(config, traffic, cap, seed, dev)
         if graph is not None:  # the hair checkpoint a Stage-III `Scene` loads
+            block = config[START_BLOCKS[traffic["start"]]]
             capture.write_hair_ply(os.path.join(
-                work, "model", "point_cloud",
-                f"iteration_{config['merged_graph']['iteration']}", "point_cloud.ply"), graph)
+                work, "model", "point_cloud", f"iteration_{block['iteration']}",
+                "point_cloud.ply"), graph)
         t_written = time.perf_counter()
         print(f"[bench] set-up: imports {t_begin - t_start:.3f} s, capture made "
               f"{t_made - t_begin:.3f} s, written {t_written - t_made:.3f} s",
@@ -273,14 +274,39 @@ def rt_values(args) -> dict:
     return {k: getattr(args, k) for k in keys}
 
 
-def start_graph(config, traffic, cap, seed, dev):
-    """The traffic's start: None for the capture's initial point cloud, or
-    the strand graph generated from the seed (a Stage-III start)."""
-    if traffic["start"] == "initial_points":
-        return None
-    if traffic["start"] != "merged_graph":
-        raise ValueError(f"unknown start {traffic['start']!r}")
-    return capture.merged_graph(config["merged_graph"], cap, seed, dev)
+# the configuration block that describes each Stage-III start
+START_BLOCKS = {"merged_graph": "merged_graph", "fitted_graph": "fitted_start"}
+# the arrays of a strand graph start, as capture.merged_graph returns them
+GRAPH_KEYS = ("endpoints", "endpoint_pairs", "features_dc", "opacity", "mask", "width",
+              "strand_root_idx", "ref_strand_root")
+
+
+def start(config, traffic, seed, dev):
+    """(capture, graph) of the traffic's start. `initial_points`: the
+    capture of `seed` and no graph (Stage I from its point cloud).
+    `merged_graph`: the capture of `seed` and the strand graph generated
+    from it along the GT strands. `fitted_graph`: the capture of the
+    configuration's `fitted_start.capture_seed`, whatever `seed`, and the
+    strand graph that the program fitted to it, read from the archive
+    `fitted_start.file` (a path from the checkout's root); `seed` still
+    seeds training and the reference."""
+    kind = traffic["start"]
+    if kind not in ("initial_points", *START_BLOCKS):
+        raise ValueError(f"unknown start {kind!r}")
+    if kind == "fitted_graph":
+        fitted = config["fitted_start"]
+        cap = capture.make(config, fitted["capture_seed"], dev)
+        return cap, load_graph(os.path.join(ROOT, fitted["file"]))
+    cap = capture.make(config, seed, dev)
+    if kind == "initial_points":
+        return cap, None
+    return cap, capture.merged_graph(config["merged_graph"], cap, seed, dev)
+
+
+def load_graph(path: str) -> dict:
+    """The strand graph of a fitted-start archive (`make_start.py`)."""
+    with np.load(path) as z:
+        return {k: z[k] for k in GRAPH_KEYS}
 
 
 def judge_first_steps(cap, args, first, initial_rt, limits, dev, graph=None):

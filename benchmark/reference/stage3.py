@@ -4,11 +4,11 @@ segment with scale |b - a| / 2 x the p-value factor, both short axes the
 segment's width), rendered, lossed and stepped by the Stage-I reference
 (stage1.py), plus the angle-smoothness term on consecutive segments.
 
-It works from the graph as the benchmark generated it (endpoints, segment
-pairs, per-segment values): the consecutive-segment table comes from the
-endpoints that join two segments, not from the program's strand walk. It
-imports torch, numpy, math and statistics (for the normal quantile) and
-the Stage-I reference only.
+It works from the graph as the benchmark generated or read it (endpoints,
+segment pairs, per-segment values): the consecutive-segment table comes
+from the endpoints that join two foreground segments, not from the
+program's strand walk. It imports torch, numpy, math and statistics (for
+the normal quantile) and the Stage-I reference only.
 """
 
 import math
@@ -21,6 +21,7 @@ import torch
 from benchmark.reference import stage1 as s1
 
 MIN_VAL = 1e-7
+OPACITY_TH, FG_BIN_TH = 0.005, 0.25
 LEAVES = ("endpoints", "features_dc", "opacity", "mask", "width")
 
 
@@ -36,10 +37,22 @@ def initial_leaves(graph: dict, device) -> Dict[str, torch.Tensor]:
     return {k: t(k) for k in LEAVES}
 
 
-def consecutive_pairs(pairs: np.ndarray) -> np.ndarray:
+def foreground(graph: dict) -> np.ndarray:
+    """The segments the smoothness term's strands are made of: opacity at
+    least OPACITY_TH and mask at least FG_BIN_TH (the reference's
+    gaussian_model.py:37-38), each through the logistic in float32."""
+    opacity = 1.0 / (1.0 + np.exp(-np.asarray(graph["opacity"], np.float32)))
+    mask = 1.0 / (1.0 + np.exp(-np.asarray(graph["mask"], np.float32)))
+    return (opacity[:, 0] >= OPACITY_TH) & (mask[:, 0] >= FG_BIN_TH)
+
+
+def consecutive_pairs(pairs: np.ndarray, fg=None) -> np.ndarray:
     """(M, 2, 2) endpoint ids [[a, b], [b, c]] of every two segments that
-    share an endpoint b of degree two."""
+    share an endpoint b of degree two, among the segments `fg` keeps (all
+    without it)."""
     pairs = np.asarray(pairs, np.int64)
+    if fg is not None:
+        pairs = pairs[fg]
     n_ep = int(pairs.max()) + 1
     deg = np.bincount(pairs.ravel(), minlength=n_ep)
     rows = np.repeat(np.arange(pairs.shape[0]), 2)
@@ -53,10 +66,11 @@ def consecutive_pairs(pairs: np.ndarray) -> np.ndarray:
                      np.stack([ends, other[:, 1]], 1)], 1)
 
 
-def hair_model(pairs: np.ndarray, opt: dict, device) -> s1.Model:
-    """The Stage-III leaves as a stage1.Model over the graph `pairs`."""
+def hair_model(graph: dict, opt: dict, device) -> s1.Model:
+    """The Stage-III leaves as a stage1.Model over the strand graph."""
+    pairs = graph["endpoint_pairs"]
     idx = torch.tensor(np.asarray(pairs, np.int64), device=device)
-    consec = torch.tensor(consecutive_pairs(pairs), device=device)
+    consec = torch.tensor(consecutive_pairs(pairs, foreground(graph)), device=device)
     factor = dist_to_scale_factor(opt["pval"])
     cos_th = math.cos(math.radians(30.0))
 

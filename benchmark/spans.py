@@ -140,6 +140,20 @@ def topology_transfer_share(ctx):
     return _topology_share(ctx, "topology_transfer")
 
 
+def densify_strategies_share(ctx):
+    """Σ of densification's clone, split and prune decisions
+    (`topo/strategies`) inside the window's topology events over the
+    window's wall time, in %; None where no such span falls in the window."""
+    w = window(ctx)
+    if w is None or not all(n in w.spans.names for n in ("topo/strategies", "topo/event")):
+        return None
+    rows = _inside_events(w, ("topo/strategies",))
+    if not rows:
+        return None
+    _report_topology(w, ctx)
+    return 100.0 * _clipped(w, rows) / (w.hi - w.lo)
+
+
 _reported = set()
 
 

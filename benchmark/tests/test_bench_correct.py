@@ -10,7 +10,7 @@ import time
 import pytest
 import torch
 
-from benchmark import capture, check, harness
+from benchmark import check, harness
 
 
 def run(spec):
@@ -47,7 +47,8 @@ def test_sound_first_step_within_limits(tiny_spec):
 def test_state_left_unchanged_fails(workload, monkeypatch, tiny_spec):
     from hairgs_tpu_torch.train import trainer
 
-    monkeypatch.setattr(trainer, "adam_step", lambda params, grads, state, lr: (params, state))
+    monkeypatch.setattr(trainer, "adam_step",
+                        lambda params, grads, state, lr, out=None: (params, state))
     correct, numbers, _ = run(tiny_spec(workload))
     assert not correct and numbers["change"] == pytest.approx(1.0)
 
@@ -75,8 +76,7 @@ def test_tf32_control_fails(workload, tiny_spec):
     spec = tiny_spec(workload)
     _, numbers, fol = run(spec)
     assert numbers["view_match"] >= 0.95
-    cap = capture.make(spec.config, 2**31 + 5, torch.device("cpu"))
-    graph = harness.start_graph(spec.config, spec.traffic, cap, 2**31 + 5, "cpu")
+    cap, graph = harness.start(spec.config, spec.traffic, 2**31 + 5, torch.device("cpu"))
     args, _ = harness.port_args(["-s", "", *spec.config["flags"], *spec.traffic["flags"]])
     opt, rt = harness.opt_values(args), harness.rt_values(args)
     inputs = check.reference_inputs(cap, opt, "cpu", graph)
