@@ -122,7 +122,10 @@ def greedy_complementary_filter(pairs, comp_map):
 
 
 def walk_strands(endpoint_pairs: np.ndarray, num_endpoints: int):
-    """The strand walk; same contract as topo.strands._walk_strands_np."""
+    """The strand walk of topo.strands._walk_strands_np in flat form:
+    (seq (N, 2), rows (N,), offsets (num_strands + 1,), id_to_strand,
+    complementary), strand s being rows offsets[s]:offsets[s + 1] of seq
+    and rows."""
     lib = _lib()
     pairs = np.ascontiguousarray(endpoint_pairs, dtype=np.int64)
     ns = pairs.shape[0]
@@ -137,9 +140,6 @@ def walk_strands(endpoint_pairs: np.ndarray, num_endpoints: int):
         _ptr(complementary, _P32))
     if num_strands < 0:
         raise RuntimeError("walk_strands failed (malformed graph?)")
-    if num_strands == 0:
-        return [], [], id_to_strand, complementary
     # segments of cycles are never walked: they lie past the last offset
-    end, bounds = offsets[num_strands], offsets[1:num_strands]
-    return (np.split(seq[:end], bounds), np.split(rows[:end], bounds),
-            id_to_strand, complementary)
+    end = offsets[num_strands]
+    return seq[:end], rows[:end], offsets[:num_strands + 1], id_to_strand, complementary

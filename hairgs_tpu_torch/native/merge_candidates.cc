@@ -69,33 +69,61 @@ int64_t merge_candidates(const float* points, const float* dirs, int64_t m,
   std::sort(cells.begin(), cells.end(),
             [](const Cell& a, const Cell& b) { return a.key < b.key; });
 
+  // the ball query, one occupied cell at a time (the searches of
+  // neighbouring cells then hit cached parts of `cells`): every point's
+  // neighbours within dist_th, grouped by point below
+  std::vector<int64_t> ball_i, ball_j, cand;
+  for (int64_t c = 0; c < m;) {
+    int64_t e = c;
+    while (e < m && cells[e].key == cells[c].key) ++e;
+    const float* p0 = points + 3 * cells[c].idx;
+    const int64_t cx = cell_of(p0[0], inv_cell);
+    const int64_t cy = cell_of(p0[1], inv_cell);
+    const int64_t cz = cell_of(p0[2], inv_cell);
+    cand.clear();
+    // z is the key's lowest field, so the cells cz-1..cz+1 of one (x, y)
+    // column are one run of keys: one search a column
+    for (int64_t dx = -1; dx <= 1; ++dx)
+      for (int64_t dy = -1; dy <= 1; ++dy) {
+        const int64_t first = cell_key(cx + dx, cy + dy, cz - 1);
+        const int64_t last = first + 2;
+        auto lo = std::lower_bound(
+            cells.begin(), cells.end(), first,
+            [](const Cell& cl, int64_t k) { return cl.key < k; });
+        for (; lo != cells.end() && lo->key <= last; ++lo) cand.push_back(lo->idx);
+      }
+    for (int64_t k = c; k < e; ++k) {
+      const int64_t i = cells[k].idx;
+      const float* pi = points + 3 * i;
+      for (int64_t j : cand) {
+        const float* pj = points + 3 * j;
+        const double ddx = static_cast<double>(pi[0]) - pj[0];
+        const double ddy = static_cast<double>(pi[1]) - pj[1];
+        const double ddz = static_cast<double>(pi[2]) - pj[2];
+        if (ddx * ddx + ddy * ddy + ddz * ddz <= th2) {
+          ball_i.push_back(i);
+          ball_j.push_back(j);
+        }
+      }
+    }
+    c = e;
+  }
+  std::vector<int64_t> offsets(m + 1, 0), nbrs_all(ball_i.size());
+  for (int64_t i : ball_i) ++offsets[i + 1];
+  for (int64_t i = 0; i < m; ++i) offsets[i + 1] += offsets[i];
+  {
+    std::vector<int64_t> at(offsets.begin(), offsets.end() - 1);
+    for (size_t k = 0; k < ball_i.size(); ++k) nbrs_all[at[ball_i[k]]++] = ball_j[k];
+  }
+
   int64_t count = 0;
-  std::vector<int64_t> nbrs;
   for (int64_t i = 0; i < m; ++i) {
     const float* pi = points + 3 * i;
-    const int64_t cx = cell_of(pi[0], inv_cell);
-    const int64_t cy = cell_of(pi[1], inv_cell);
-    const int64_t cz = cell_of(pi[2], inv_cell);
-    nbrs.clear();
-    for (int64_t dx = -1; dx <= 1; ++dx)
-      for (int64_t dy = -1; dy <= 1; ++dy)
-        for (int64_t dz = -1; dz <= 1; ++dz) {
-          const int64_t key = cell_key(cx + dx, cy + dy, cz + dz);
-          auto lo = std::lower_bound(
-              cells.begin(), cells.end(), key,
-              [](const Cell& c, int64_t k) { return c.key < k; });
-          for (; lo != cells.end() && lo->key == key; ++lo) {
-            const int64_t j = lo->idx;
-            const float* pj = points + 3 * j;
-            const double ddx = static_cast<double>(pi[0]) - pj[0];
-            const double ddy = static_cast<double>(pi[1]) - pj[1];
-            const double ddz = static_cast<double>(pi[2]) - pj[2];
-            if (ddx * ddx + ddy * ddy + ddz * ddz <= th2) nbrs.push_back(j);
-          }
-        }
-    std::sort(nbrs.begin(), nbrs.end());  // cKDTree return_sorted order
+    auto nb_begin = nbrs_all.begin() + offsets[i], nb_end = nbrs_all.begin() + offsets[i + 1];
+    std::sort(nb_begin, nb_end);  // cKDTree return_sorted order
     const float* di = dirs + 3 * i;
-    for (int64_t j : nbrs) {
+    for (auto jt = nb_begin; jt != nb_end; ++jt) {
+      const int64_t j = *jt;
       if (tips_global[j] == tips_global[i]) continue;  // self
       if (tips_global[j] == comp_global[i]) continue;  // own strand
       const float* dj = dirs + 3 * j;

@@ -22,6 +22,9 @@ about 15 us where the fast range costs 2. With no profiler a span costs
 two clock reads and a ring write, and enters no range.
 
 Span names are the constants below (`NAMES`); any other name raises.
+
+`CAPTURES` counts the graphed step's captures (`train/graphed.py`): after
+each, the bytes the caching allocator reserves and the graphs alive.
 """
 
 import itertools
@@ -123,6 +126,9 @@ class Ring:
 
 
 RING = Ring()
+
+
+CAPTURES = []  # (bytes reserved, graphs alive) after each graphed-step capture
 
 
 class span:

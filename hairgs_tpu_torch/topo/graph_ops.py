@@ -128,7 +128,7 @@ class HairHostState:
         ep_keep = np.zeros(self.endpoints.shape[0], dtype=bool)
         if self.pairs.size:
             ep_keep[self.pairs.ravel()] = True
-        old_indices = np.unique(self.pairs) if self.pairs.size else np.zeros(0, np.int64)
+        old_indices = np.flatnonzero(ep_keep)  # np.unique(self.pairs)
         mapping = np.zeros(
             (int(old_indices.max()) + 1) if old_indices.size else 1, dtype=np.int64
         )
@@ -291,13 +291,8 @@ def _merge_collapsed_segments_v2(st: HairHostState, info):
         bg = ~st.foreground_mask()
         mask = collapsed | bg
         collapsed_ids = st.pairs[mask]
-        ids, counts = np.unique(st.pairs, return_counts=True)
-        non_unique = ids[counts != 1]
-        merge_ok = (
-            np.all(np.isin(collapsed_ids, non_unique), axis=1)
-            if collapsed_ids.size
-            else np.zeros(0, dtype=bool)
-        )
+        # both endpoints shared with another segment
+        merge_ok = np.all(np.bincount(st.pairs.ravel())[collapsed_ids] > 1, axis=1)
         midx = np.where(mask)[0]
         mask[:] = False
         mask[midx[merge_ok]] = True
@@ -334,9 +329,7 @@ def _prune_strategy(st: HairHostState, extent, max_screen_size, cfg, info,
         info["prune_big_ws"] = int(big_ws.sum())
         prune = prune | big_ws
     if avoid_connected and prune.sum() != 0:
-        ids, counts = np.unique(st.pairs, return_counts=True)
-        unique = ids[counts == 1]
-        is_end_segment = np.any(np.isin(st.pairs, unique), axis=1)
+        is_end_segment = np.any(np.bincount(st.pairs.ravel())[st.pairs] == 1, axis=1)
         is_not_fg = st.mask_act() < FG_BIN_TH
         allowed = is_end_segment | is_not_fg
         info["prune_avoided"] = int(prune.sum() - (prune & allowed).sum())

@@ -39,11 +39,10 @@ def compute_endpoint_pair_to_merge(model, st=None, native: bool = True,
         info = model.strands_info
 
     # strand endpoints (appear once), restricted to foreground segments
-    ids, counts = np.unique(st.pairs, return_counts=True)
-    strand_endpoint_id = ids[counts == 1]
-    fg = st.foreground_mask()
-    fg_ids = st.pairs[fg].ravel()
-    strand_endpoint_id = strand_endpoint_id[np.isin(strand_endpoint_id, fg_ids)]
+    degree = np.bincount(st.pairs.ravel())
+    in_fg = np.zeros(degree.shape[0], dtype=bool)
+    in_fg[st.pairs[st.foreground_mask()].ravel()] = True
+    strand_endpoint_id = np.flatnonzero((degree == 1) & in_fg)
     if strand_endpoint_id.shape[0] == 0:
         return np.zeros((0, 2), dtype=np.int64)
 

@@ -16,15 +16,56 @@ The walk runs in the native library (`hairgs_tpu_torch.native`);
 `native=False`.
 """
 
-from typing import List, NamedTuple, Optional
+from collections.abc import Sequence
+from typing import NamedTuple, Optional
 
 import numpy as np
 from scipy.spatial import cKDTree
 
 
+class Strands(Sequence):
+    """Per-strand arrays held in one flat array: strand `i` is the view
+    `flat[offsets[i]:offsets[i + 1]]`. The walk returns this form, and the
+    topology events and the strand tables read it whole, so a graph of
+    ~10^5 strands makes no ~10^5 small arrays per walk."""
+
+    def __init__(self, flat: np.ndarray, offsets: np.ndarray):
+        self.flat = flat
+        self.offsets = offsets
+
+    @classmethod
+    def from_list(cls, arrays, empty_shape=(0,)):
+        """The flat form of a list of per-strand arrays."""
+        if isinstance(arrays, cls):
+            return arrays
+        lengths = [a.shape[0] for a in arrays]
+        offsets = np.zeros(len(lengths) + 1, np.int64)
+        np.cumsum(lengths, out=offsets[1:])
+        flat = (np.concatenate(arrays, axis=0) if lengths
+                else np.zeros(empty_shape, np.int64))
+        return cls(flat, offsets)
+
+    def __len__(self):
+        return self.offsets.shape[0] - 1
+
+    def __getitem__(self, i: int):
+        n = len(self)
+        if not -n <= i < n:
+            raise IndexError(i)
+        i %= n
+        return self.flat[self.offsets[i]:self.offsets[i + 1]]
+
+    def __iter__(self):
+        return iter(np.split(self.flat, self.offsets[1:-1])) if len(self) else iter(())
+
+    def strand_of_each(self) -> np.ndarray:
+        """(len(flat),) the strand each flat row belongs to."""
+        return np.repeat(np.arange(len(self)), np.diff(self.offsets))
+
+
 class StrandsInfo(NamedTuple):
-    list_strands: List[np.ndarray]  # each (num_segments, 2) endpoint ids, root->tip
-    list_strands_segments_id: List[np.ndarray]  # each (num_segments,) row ids
+    list_strands: Strands  # each (num_segments, 2) endpoint ids, root->tip
+    list_strands_segments_id: Strands  # each (num_segments,) row ids
     id_to_strand_id: np.ndarray  # (E,) int32, -1 where unassigned
     strand_endpoint_id_to_complementary: np.ndarray  # (E,) int32
 
@@ -33,12 +74,17 @@ def _walk_strands(endpoint_pairs: np.ndarray, num_endpoints: int,
                   native: bool = True):
     """Walk every path component: returns (strands, strand_rows, id2strand,
     complementary) with strands ordered from their discovered start
-    endpoint."""
+    endpoint, the first two as `Strands`."""
     if native:
         from hairgs_tpu_torch.native import walk_strands
 
-        return walk_strands(endpoint_pairs, num_endpoints)
-    return _walk_strands_np(endpoint_pairs, num_endpoints)
+        seq, rows, offsets, id_to_strand, complementary = walk_strands(
+            endpoint_pairs, num_endpoints)
+        return Strands(seq, offsets), Strands(rows, offsets), id_to_strand, complementary
+    strands, strand_rows, id_to_strand, complementary = _walk_strands_np(
+        endpoint_pairs, num_endpoints)
+    return (Strands.from_list(strands, (0, 2)), Strands.from_list(strand_rows),
+            id_to_strand, complementary)
 
 
 def _walk_strands_np(endpoint_pairs: np.ndarray, num_endpoints: int):
@@ -100,16 +146,23 @@ def compute_strands_info(model, arrays=None, native: bool = True,
         endpoint_pairs, endpoints.shape[0], native=native)
 
     # root disambiguation: flip so the end closer to the scalp comes first
-    # (hair_gaussian_model.py:1481-1489)
+    # (hair_gaussian_model.py:1481-1489): a flipped strand's rows run in
+    # reverse order, each with its two endpoints swapped
     tree = cKDTree(model.ref_strand_root)
-    if strands:
-        starts = np.array([s[0, 0] for s in strands])
-        ends = np.array([s[-1, 1] for s in strands])
-        d_start, _ = tree.query(endpoints[starts], k=1)
-        d_end, _ = tree.query(endpoints[ends], k=1)
-        for i in np.nonzero(d_start > d_end)[0]:
-            strands[i] = np.flip(np.flip(strands[i], axis=1), axis=0).copy()
-            strand_rows[i] = np.flip(strand_rows[i]).copy()
+    if len(strands):
+        off = strands.offsets
+        tips = np.concatenate([strands.flat[off[:-1], 0], strands.flat[off[1:] - 1, 1]])
+        d, _ = tree.query(endpoints[tips], k=1, workers=-1)
+        flip = d[:len(strands)] > d[len(strands):]  # start farther than end
+        if flip.any():
+            sid = strands.strand_of_each()
+            flipped = flip[sid]
+            pos = np.arange(sid.shape[0])
+            src = np.where(flipped, off[sid] + off[sid + 1] - 1 - pos, pos)
+            seq = strands.flat[src]
+            seq[flipped] = seq[flipped][:, ::-1]
+            strands = Strands(seq, off)
+            strand_rows = Strands(strand_rows.flat[src], off)
 
     info = StrandsInfo(
         list_strands=strands,
@@ -173,15 +226,11 @@ def smooth_pair_indices(info: StrandsInfo, max_pairs: Optional[int] = None):
     Returns (pairs (M,2,2) int32, valid (M,) bool) padded to `max_pairs`
     (or to a 1024 bucket).
     """
-    chunks = [
-        np.stack([s[:-1], s[1:]], axis=1)
-        for s in info.list_strands
-        if s.shape[0] >= 2
-    ]
-    if chunks:
-        pairs = np.concatenate(chunks, axis=0).astype(np.int32)
-    else:
-        pairs = np.zeros((0, 2, 2), dtype=np.int32)
+    strands = Strands.from_list(info.list_strands, (0, 2))
+    sid = strands.strand_of_each()
+    first = np.flatnonzero(sid[:-1] == sid[1:])  # rows followed in their strand
+    pairs = np.stack([strands.flat[first], strands.flat[first + 1]],
+                     axis=1).astype(np.int32).reshape(-1, 2, 2)
     m = pairs.shape[0]
     if max_pairs is None:
         max_pairs = max(1024, ((m + 1023) // 1024) * 1024)

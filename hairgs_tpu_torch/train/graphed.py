@@ -24,7 +24,21 @@ step's, then the capture, which runs nothing. The step's `RasterConfig`,
 SH degree and image size are fixed for a step; the driver builds a new
 step, and so a new graph, when a controller changes one. A batch of views
 and tensors that the backend does not take (the CPU) run the eager step.
+
+Memory. The steps share one backend (`SHARED`), which holds one graph at a
+time, each in a memory pool of its own. A capture first frees the graph
+the backend holds, whichever step recorded it, and before it records hands
+the caching allocator's free blocks back to the card: the allocator
+releases no cached memory while a capture is under way, so a capture could
+otherwise run out of memory beside gigabytes reserved by earlier graphs'
+pools and left free. So the memory held for graphs is one step's, however
+many keys the arenas and the controllers produce. After each capture the
+reserved bytes and the live graphs go to `telemetry.CAPTURES` and to
+standard error.
 """
+
+import sys
+import weakref
 
 import torch
 
@@ -55,13 +69,16 @@ def _signature(tree):
 
 
 class CudaGraphs:
-    """The capture backend: `torch.cuda.CUDAGraph` on a side stream. The
-    graphs it records in turn share one memory pool: a new one, recorded
-    while the one it replaces still holds the pool, reuses its blocks."""
+    """The capture backend: `torch.cuda.CUDAGraph` on a side stream, each
+    graph recorded into a pool of its own. `free` destroys a graph, so its
+    pool holds only blocks that tensors still use; `release` hands the
+    allocator's free blocks, those of such pools too, back to the card."""
+
+    _recorded = weakref.WeakSet()  # the graphs recorded and not yet freed
 
     def __init__(self):
         self._stream = None
-        self._pool = None
+        self.held = None  # the one graph kept for replay (`GraphedStep` sets it)
 
     @staticmethod
     def supports(t: torch.Tensor) -> bool:
@@ -82,26 +99,43 @@ class CudaGraphs:
         return out
 
     def capture(self, fn):
-        """(graph, fn's result): fn() recorded into a new graph, not run.
-        Unlike `torch.cuda.graph`, no synchronise, garbage collection or
-        cache release before the capture: a step records one afresh
-        whenever its shapes change."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        """(graph, fn's result): fn() recorded into a new graph in a new
+        pool, not run. Unlike `torch.cuda.graph`, no synchronise or
+        garbage collection before the capture."""
         graph = torch.cuda.CUDAGraph()
         side = self._side()
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=self._pool)
+            graph.capture_begin(pool=torch.cuda.graph_pool_handle())
             try:
                 out = fn()
             finally:
                 graph.capture_end()
         torch.cuda.current_stream().wait_stream(side)
+        self._recorded.add(graph)
         return graph, out
 
     @staticmethod
     def replay(graph):
         graph.replay()
+
+    def free(self, graph):
+        """Destroy the graph (a launch of it in flight still completes)."""
+        self._recorded.discard(graph)
+        graph.reset()
+
+    @staticmethod
+    def release():
+        torch.cuda.empty_cache()
+
+    @staticmethod
+    def reserved() -> int:
+        return torch.cuda.memory_reserved()
+
+    def live(self) -> int:
+        return len(self._recorded)
+
+
+SHARED = CudaGraphs()  # the backend the graphed steps share
 
 
 class GraphedStep:
@@ -112,14 +146,16 @@ class GraphedStep:
     `eager` is the step itself; `body(params, stats, opt_state, active,
     camera, lr_tree, in_place)` the same step with its learning rates given;
     `lr_tree(step)` the learning rates at `step` (xyz's a 0-d float32
-    tensor).
+    tensor). `backend` defaults to `SHARED`: the graph this step replays is
+    the one the backend holds, and once another step captured, this one
+    captures again on its next call.
     """
 
     def __init__(self, eager, body, lr_tree, backend=None):
         self.eager = eager
         self.body = body
         self.lr_tree = lr_tree
-        self.backend = CudaGraphs() if backend is None else backend
+        self.backend = SHARED if backend is None else backend
         self._key = None
         self._graph = None
         self._out = None  # the graph's (metrics, image)
@@ -134,7 +170,7 @@ class GraphedStep:
         state = (params, stats, opt_state, active)
         rates = self.lr_tree(step)
         key = (_signature(state), _signature(camera))
-        if key != self._key:
+        if key != self._key or self.backend.held is not self._graph:
             with telemetry.span(telemetry.TRAIN_CAPTURE):
                 return self._capture(key, state, camera, rates)
         for dst, src in zip(_leaves(self._state), _leaves(state)):
@@ -156,7 +192,11 @@ class GraphedStep:
             self._lr.fill_(xyz_lr.item())
 
     def _capture(self, key, state, camera, rates):
-        self._key = None
+        backend = self.backend
+        self._key = self._graph = self._out = None
+        if backend.held is not None:
+            backend.free(backend.held)  # the graph it replaces, whichever step's
+            backend.held = None
         self._state = _map(torch.clone, state)
         self._camera = _map(torch.clone, camera)
         self._lr = torch.empty((), dtype=torch.float32, device=state[-1].device)
@@ -166,12 +206,17 @@ class GraphedStep:
         def step():  # (metrics, image); the new state in the buffers
             return self.body(*self._state, self._camera, rates, in_place=True)[3:]
 
-        result = self.backend.warm_up(step)  # this step's
+        result = backend.warm_up(step)  # this step's
         before = dict(launches)
-        # the previous graph is freed once this one holds the pool
-        self._graph, self._out = self.backend.capture(step)
+        backend.release()  # a capture cannot free cached memory itself
+        self._graph, self._out = backend.capture(step)
+        backend.held = self._graph
         # the capture ran nothing: its launches are counted at each replay
         self._launches = {k: launches[k] - before[k] for k in launches}
         launches.update(before)
         self._key = key
+        reserved, live = backend.reserved(), backend.live()
+        telemetry.CAPTURES.append((reserved, live))
+        print(f"[graphed] capture {len(telemetry.CAPTURES)}: {reserved} bytes reserved, "
+              f"{live} live graph(s)", file=sys.stderr)
         return (*self._state[:3], *result)

@@ -4,7 +4,9 @@ On the CPU the capture backend is a fake that runs what it records: at
 capture the step once, at each replay the step again, its outputs written
 into those of the capture (what a replay leaves in a graph's output
 tensors). The wrapper's logic around it is the card's: when it captures,
-what it copies in, what it returns, when it leaves the step eager.
+what it copies in, what it returns, when it leaves the step eager, which
+graphs it frees and when it hands their memory back. The fake keeps the
+books of the graphs and pools alive, so a test bounds them.
 
 `test_graphed_steps_equal_eager_steps_on_the_card` is the same comparison
 on the card with real graphs; it skips without one. On the card, from the
@@ -15,9 +17,12 @@ machine does not have):
         -W ignore::pytest.PytestUnknownMarkWarning tests/test_torch_port_graphed.py
 """
 
+import weakref
+
 import pytest
 import torch
 
+from hairgs_tpu_torch import telemetry
 from hairgs_tpu_torch.bench_scene import build_bench_scene
 from hairgs_tpu_torch.core.camera import stack_cameras
 from hairgs_tpu_torch.optim import AdamState
@@ -47,13 +52,31 @@ def card():
     return torch.device("cuda")
 
 
+class _Graph:
+    """A fake graph: the callable it recorded, the outputs its replays
+    write, whether it was freed."""
+
+    def __init__(self, fn, out):
+        self.fn, self.out = fn, out
+        self.freed = False
+
+
 class FakeGraphs:
     """A capture backend that takes CPU tensors: it records the callable
-    and runs it at each replay, its outputs in the capture's output list."""
+    and runs it at each replay, its outputs in the capture's output list.
+
+    It keeps the books of the card's allocator for graphs, across all its
+    instances: each capture records into a pool of its own, of one unit of
+    memory; a pool stays reserved while a graph in it lives (neither freed
+    nor collected), and after that until a `release`."""
+
+    pools = {}  # pool id: its graphs, as weak references
 
     def __init__(self):
         self.captures = self.replays = 0
         self.replaying = False
+        self.held = None
+        self.most_live = 0  # the most graphs alive at the end of a capture
 
     @staticmethod
     def supports(t):
@@ -66,16 +89,46 @@ class FakeGraphs:
     def capture(self, fn):
         self.captures += 1
         out = [None, None]
-        return (fn, out), out
+        graph = _Graph(fn, out)
+        FakeGraphs.pools[len(FakeGraphs.pools)] = [weakref.ref(graph)]
+        self.most_live = max(self.most_live, live_graphs())
+        return graph, out
 
     def replay(self, graph):
-        fn, out = graph
+        assert not graph.freed
         self.replays += 1
         self.replaying = True
         try:
-            out[:] = fn()
+            graph.out[:] = graph.fn()
         finally:
             self.replaying = False
+
+    @staticmethod
+    def free(graph):
+        graph.freed = True
+
+    @staticmethod
+    def release():
+        for pool, refs in list(FakeGraphs.pools.items()):
+            if not any(_alive(r) for r in refs):
+                del FakeGraphs.pools[pool]
+
+    @staticmethod
+    def reserved():
+        return len(FakeGraphs.pools)
+
+    @staticmethod
+    def live():
+        return live_graphs()
+
+
+def _alive(ref):
+    graph = ref()
+    return graph is not None and not graph.freed
+
+
+def live_graphs():
+    return sum(_alive(r) for refs in FakeGraphs.pools.values() for r in refs)
 
 
 def _scene(device="cpu"):
@@ -172,6 +225,49 @@ def test_recapture_on_a_new_capacity_and_a_new_raster_config():
     assert (fake.captures, fake.replays) == (3, 3)
 
 
+@pytest.fixture
+def books(monkeypatch):
+    """The fake in place of the card's backend, from empty books; the
+    capture counter, fresh."""
+    monkeypatch.setattr(FakeGraphs, "pools", {})
+    monkeypatch.setattr(graphed, "SHARED", FakeGraphs())
+    counter = []
+    monkeypatch.setattr(telemetry, "CAPTURES", counter)
+    return counter
+
+
+def test_one_graph_and_one_pool_live_through_new_keys_and_rebuilt_steps(books):
+    """The arenas grow under one step (a new key each), and the driver
+    builds a new step for each new tile cap (2048 -> 4096 -> 2048) and drops
+    the old one. After every step one graph and one pool are alive; after
+    every capture the counter reads one pool reserved and one live graph; each key captures once; every step
+    equals the eager step bit for bit."""
+    scene = _scene()
+
+    def build(max_pairs):  # as training()'s build_step, on the shared backend
+        return _step(scene, RasterConfig(**{**RASTER.__dict__,
+                                            "max_pairs_per_tile": max_pairs}))
+
+    state, it = _start(scene), 1
+    backends = set()
+    for max_pairs, grows in ((2048, 2), (4096, 1), (2048, 0)):
+        step = build(max_pairs)  # the old step is dropped here
+        backends.add(id(step.backend))
+        for g in range(grows + 1):
+            if g:
+                state = _grown(state, 256)
+            expect = _run(step.eager, scene, state, [0, 1], first=it)
+            ran = _run(step, scene, state, [0, 1], first=it)
+            for a, b in zip(ran, expect):
+                _assert_equal(a, b)
+            assert live_graphs() == 1 and len(FakeGraphs.pools) == 1
+            state, it = ran[-1][0], it + 2
+    fake = step.backend
+    assert len(backends) == 1 and fake.most_live == 1
+    assert (fake.captures, fake.replays) == (6, 6)
+    assert books == [(1, 1)] * 6
+
+
 def test_a_state_tensor_is_copied_in_only_where_its_storage_changed(monkeypatch):
     """Before a replay the wrapper copies in the tensors that are not its
     buffers (a topology event's new arenas) and nothing else of the state;
@@ -227,8 +323,9 @@ def test_the_eager_step_runs_where_no_graph_can():
 def test_graphed_steps_equal_eager_steps_on_the_card(card):
     """Five graphed steps on the bench scene equal five eager steps bit for
     bit (parameters, moments, statistics, metrics, image), a re-capture on
-    a changed pair capacity after the second, and no graphed step makes a
-    call that waits for the card (torch's sync debug mode raises on one)."""
+    a changed pair capacity after the second, which frees the first graph,
+    and no graphed step makes a call that waits for the card (torch's sync
+    debug mode raises on one)."""
     scene = build_bench_scene(n_gaussians=20_000, width=512, height=512, seed=1,
                               device=card)
     w, h = scene.width, scene.height
@@ -267,6 +364,9 @@ def test_graphed_steps_equal_eager_steps_on_the_card(card):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert all(s._graph is not None for s in captured)
+    # the second step's capture freed the first step's graph
+    assert captured[-1]._graph is graphed.SHARED.held is not None
+    assert captured[0]._graph is not graphed.SHARED.held
+    assert graphed.SHARED.live() == 1
     for a, b in zip(ran, eager):
         _assert_equal(a, b)

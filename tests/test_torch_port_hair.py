@@ -143,6 +143,40 @@ def test_hair_derived_and_render_inputs_match_jax():
                                       np.tile([1.0, 0, 0, 0], (rot.shape[0] - ns + 2, 1)))
 
 
+def test_sub_10um_segments_of_the_fitted_graph_match_jax():
+    """On a crop of the fitted USC-HairSalon start with its 531 segments
+    under 10 um: the render inputs' endpoint gradient (a fixed random
+    cotangent) grows as one over the segment's length, so those segments'
+    endpoints carry nearly all of it, in JAX as in the port; each endpoint's
+    gradient equals JAX's within 1e-5 of its largest component, on those
+    segments as on the rest."""
+    from hairgs_tpu.models.hair import hair_render_inputs as jinputs
+    from hairgs_tpu_torch.models.hair import hair_render_inputs
+    from tests.test_torch_port_topo import _fitted_crop
+
+    eps, pairs, seg, _, _, length = _fitted_crop()
+    jm, tm = both_models((eps, pairs, seg))
+    factor, cam = jm.dist_to_scale_factor, np.array([0.0, 0.0, 0.5], np.float32)
+
+    def jfn(p):
+        return jinputs(p, jm.graph, jnp.asarray(cam), 0, factor)
+
+    w = _weights({k: v.shape for k, v in jax.jit(jfn)(jm.params).items()})
+    gj = jax.jit(jax.grad(lambda p: sum(jnp.sum(jfn(p)[k] * w[k]) for k in w)))(jm.params)
+    leaves = [t.detach().requires_grad_(True) for t in tm.params]
+    out = hair_render_inputs(type(tm.params)(*leaves), tm.graph, torch.from_numpy(cam), 0,
+                             factor)
+    (gt,) = torch.autograd.grad(sum(torch.sum(out[k] * torch.from_numpy(w[k])) for k in out),
+                                leaves[:1])
+    n = tm.num_endpoints
+    gj, gt = np.asarray(gj.endpoints)[:n], gt.numpy()[:n]
+    tiny = np.unique(pairs[length < 1e-5])
+    for g in (gj, gt):
+        assert (g[tiny] ** 2).sum() > 0.99 * (g ** 2).sum()
+    rel = np.abs(gt - gj).max(axis=1) / np.maximum(np.abs(gj).max(axis=1), 1e-30)
+    assert rel.max() < 1e-5
+
+
 def test_clip_gradient_at_the_bound_matches_jnp_clip():
     """jnp.clip passes half the gradient at a bound (max/min split a tie);
     the port's smoothness loss clips with torch.maximum/minimum, which do

@@ -341,6 +341,72 @@ def test_random_scene_events_match_jax(seed):
     assert_same(jm, tm)
 
 
+FITTED = "benchmark/starts/usc_hairsalon_1k_fitted.npz"
+
+
+def _fitted_crop():
+    """About 2000 segments of the fitted USC-HairSalon start (the graph the
+    port's Stage I and merge left): its 300 longest, every one under
+    10 um, a run of 300 background ones and a run of 900 rows of ordinary
+    ones, on their endpoints renumbered; with its reference roots and the
+    split length of the whole graph (its foreground's diagonal over
+    `num_points_strand`)."""
+    import os
+
+    from hairgs_tpu_torch.config import OptimizationConfig
+    from hairgs_tpu_torch.models.gaussian import FG_BIN_TH, OPACITY_TH
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with np.load(os.path.join(root, FITTED)) as z:
+        g = {k: z[k] for k in z.files}
+    eps, pairs = g["endpoints"], g["endpoint_pairs"]
+    length = np.linalg.norm(eps[pairs[:, 1]] - eps[pairs[:, 0]], axis=1)
+    sig = lambda x: 1.0 / (1.0 + np.exp(-x[:, 0]))
+    fg = (sig(g["opacity"]) >= OPACITY_TH) & (sig(g["mask"]) >= FG_BIN_TH)
+    diag = np.linalg.norm(np.ptp(eps[pairs[fg].ravel()], axis=0))
+    rows = np.unique(np.concatenate([
+        np.argsort(-length)[:300], np.flatnonzero(length < 1e-5),
+        np.flatnonzero(~fg)[5000:5300], np.arange(100_000, 100_900)]))
+    used, remap = np.unique(pairs[rows], return_inverse=True)
+    seg = dict(features_dc=g["features_dc"][rows],
+               features_rest=np.zeros((rows.size, 0, 3), np.float32),
+               opacity=g["opacity"][rows], mask=g["mask"][rows], width=g["width"][rows])
+    return (eps[used], remap.reshape(-1, 2), seg, g["ref_strand_root"],
+            float(diag) / OptimizationConfig().num_points_strand, length[rows])
+
+
+def test_fitted_graph_densification_matches_jax():
+    """Two densify events on a crop of the fitted USC-HairSalon start, with
+    the same seeded statistics in both packages and the whole graph's
+    split length: Stage III's first (no screen-size prune before the
+    opacity reset at 3000) and a later one (screen size 20, so the long
+    segments are pruned as too wide). The counts of each strategy, the
+    graphs, the strands info and the surviving statistics equal JAX's."""
+    from hairgs_tpu.topo.graph_ops import hair_densification as jdens
+    from hairgs_tpu_torch.topo.graph_ops import hair_densification
+
+    eps, pairs, seg, ref_root, split_length, length = _fitted_crop()
+    assert 1800 <= pairs.shape[0] <= 2200 and length.max() > 0.2
+    assert (length < 1e-5).sum() == 531
+    jm, tm = make_pair(eps, pairs, seg=seg, ref_root=ref_root)
+    assert_same(jm, tm)
+    rng = np.random.default_rng(1600000001)
+    strip = lambda d: {k: v for k, v in d.items() if not k.startswith("t_")}
+    for size in (None, 20):
+        jm.max_segment_length = tm.max_segment_length = split_length
+        cap = tm.capacity
+        stats = dict(max_radii2d=rng.uniform(0, 5, cap).astype(np.float32),
+                     xyz_grad_accum=rng.uniform(0, 2e-3, (cap, 1)).astype(np.float32),
+                     denom=rng.integers(0, 4, (cap, 1)).astype(np.float32))
+        jm.stats = type(jm.stats)(**{k: jnp.asarray(v) for k, v in stats.items()})
+        tm.stats = type(tm.stats)(**{k: torch.from_numpy(v) for k, v in stats.items()})
+        ti, ji = hair_densification(tm, 0.55, size), jdens(jm, 0.55, size)
+        assert strip(ti) == strip(ji)
+        assert ti["split"] > 0 and ti["clone"] > 0 and ti["prune_total"] > 0
+        assert_same(jm, tm)
+    assert ti["prune_big_ws"] > 0
+
+
 def _max_degree(m):
     pairs = m.host_arrays(keys=("endpoint_pairs",))["endpoint_pairs"]
     return int(np.bincount(pairs.astype(np.int64).ravel()).max())
@@ -560,7 +626,7 @@ def test_native_walk_matches_both_oracles():
     no degree-1 start reaches."""
     from hairgs_tpu.topo.strands import _walk_strands_np as jwalk
     from hairgs_tpu_torch.native import walk_strands
-    from hairgs_tpu_torch.topo.strands import _walk_strands_np
+    from hairgs_tpu_torch.topo.strands import Strands, _walk_strands_np
 
     rng = np.random.default_rng(2)
     for trial in range(5):
@@ -576,7 +642,8 @@ def test_native_walk_matches_both_oracles():
         pairs = np.asarray(pairs, np.int64)[rng.permutation(len(pairs))]
         flip = rng.uniform(size=len(pairs)) < 0.5
         pairs[flip] = pairs[flip][:, ::-1]
-        got = walk_strands(pairs, 300)
+        seq, rows, offsets, *got = walk_strands(pairs, 300)
+        got = [list(Strands(seq, offsets)), list(Strands(rows, offsets))] + got
         for want in (_walk_strands_np(pairs, 300), jwalk(pairs, 300)):
             assert len(got[0]) == len(want[0])
             for a, b in zip(got[0] + got[1], want[0] + want[1]):
