@@ -21,17 +21,20 @@ def safe_norm(x, dim=-1, keepdim=False, eps=1e-24):
 
 
 @functools.lru_cache(maxsize=64)
-def _constant(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):  # autograd may save it for a backward
+        if isinstance(value, tuple):
+            return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                                for v in value])
         return torch.full((), value, dtype=dtype, device=device)
 
 
-def constant_like(value: float, t: torch.Tensor) -> torch.Tensor:
-    """`value` as a 0-d tensor of t's dtype on t's device, made once per
-    (value, dtype, device) by a fill on the device: a step that compares
-    against it copies nothing from the host, so it never waits for the
-    device and a CUDA graph can capture it. Read-only: every caller shares
-    it."""
+def constant_like(value, t: torch.Tensor) -> torch.Tensor:
+    """`value` (a number, or a tuple of numbers for a vector) as a 0-d (or
+    1-d) tensor of t's dtype on t's device, made once per (value, dtype,
+    device) by fills on the device: a step that compares against it copies
+    nothing from the host, so it never waits for the device and a CUDA
+    graph can capture it. Read-only: every caller shares it."""
     return _constant(value, t.dtype, t.device)
 
 

@@ -440,7 +440,10 @@ def training(mp, op, gp, rt, args, logger=None):
     step_fn = build_step()
 
     # the strand regularizers' index tables, on the device and rebuilt
-    # after every topology change (their padding changes no loss value)
+    # after every topology change (their padding changes no loss value).
+    # The smoothness table is padded to the segment arena (a strand of k
+    # segments gives k - 1 rows, so it never holds more): its shape, and
+    # so the graphed step's key, changes only with the arena's capacity
     def strand_tables():
         if not is_hair:
             return None, None, None
@@ -451,7 +454,8 @@ def training(mp, op, gp, rt, args, logger=None):
                                       else a, device=device) for a in arrays)
 
         with telemetry.span(telemetry.TOPO_STRAND_TABLES):
-            pairs, valid = dev(*smooth_pair_indices(model.strands_info))
+            pairs, valid = dev(*smooth_pair_indices(
+                model.strands_info, max_pairs=model.capacity))
             magnet = dev(*magnet_indices(model)) if op.lambda_magnet > 0 else None
         return pairs, valid, magnet
 

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from hairgs_tpu_torch.core.maths import MIN_VAL, safe_norm
+from hairgs_tpu_torch.core.maths import MIN_VAL, constant_like, safe_norm
 
 
 def angle_smoothness_loss(endpoints, pair_indices, pair_valid,
@@ -28,13 +28,13 @@ def angle_smoothness_loss(endpoints, pair_indices, pair_valid,
     pos = endpoints[pair_indices]  # (M,2,2,3)
     dirs = pos[:, :, 1] - pos[:, :, 0]  # (M,2,3)
     norm = safe_norm(dirs, dim=-1, keepdim=True)
-    dirs = dirs / torch.maximum(norm, norm.new_tensor(MIN_VAL))
+    dirs = dirs / torch.maximum(norm, constant_like(MIN_VAL, norm))
     dots = torch.sum(dirs[:, 0] * dirs[:, 1], dim=-1)  # (M,)
     sel = pair_valid & (dots <= angle_sim_th)
     # jnp.clip's gradient at a bound is half (max/min split a tie);
     # torch.clamp would pass all of it
-    dots = torch.minimum(torch.maximum(dots, dots.new_tensor(-1 + eps)),
-                         dots.new_tensor(1 - eps))
+    dots = torch.minimum(torch.maximum(dots, constant_like(-1 + eps, dots)),
+                         constant_like(1 - eps, dots))
     angles = torch.arccos(dots)
     count = torch.sum(sel)
     total = torch.sum(torch.where(sel, angles * angles, torch.zeros_like(angles)))

@@ -23,6 +23,7 @@ import torch
 from hairgs_tpu_torch import resolve_device
 from hairgs_tpu_torch.core.maths import (
     MIN_VAL,
+    constant_like,
     dist_to_scale_factor_to_pval,
     pval_to_dist_to_scale_factor,
     safe_norm,
@@ -60,7 +61,7 @@ class HairGraph(NamedTuple):
 def _floor(x, lo: float):
     """max(x, lo) with JAX's gradient: jnp.maximum and jnp.clip split it
     at a tie, torch.maximum does too, torch.clamp passes all of it."""
-    return torch.maximum(x, x.new_tensor(lo))
+    return torch.maximum(x, constant_like(lo, x))
 
 
 def hair_derived(p: HairParams, graph: HairGraph, dist_to_scale_factor: float):
@@ -77,10 +78,10 @@ def hair_derived(p: HairParams, graph: HairGraph, dist_to_scale_factor: float):
     scaling = torch.cat([scale_x, scale_yz], dim=1)
     # rotation (l.147-165): align +x to the segment; identity for collapsed
     valid = (norm[:, 0] > MIN_VAL)[:, None]
-    v1 = diff.new_tensor([1.0, 0.0, 0.0]).expand(diff.shape)
+    v1 = constant_like((1.0, 0.0, 0.0), diff).expand(diff.shape)
     safe_diff = torch.where(valid, diff, v1)
     quat = quaternion_between_vectors(v1, safe_diff)
-    identity = diff.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(quat.shape)
+    identity = constant_like((1.0, 0.0, 0.0, 0.0), diff).expand(quat.shape)
     rotation = torch.where(valid, quat, identity)
     # xyz = midpoint (l.167-172)
     xyz = torch.mean(pairs, dim=1)

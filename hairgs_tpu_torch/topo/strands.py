@@ -224,7 +224,13 @@ def smooth_pair_indices(info: StrandsInfo, max_pairs: Optional[int] = None):
     >= 2 segments, rows [[a,b],[b,c]] for each consecutive pair.
 
     Returns (pairs (M,2,2) int32, valid (M,) bool) padded to `max_pairs`
-    (or to a 1024 bucket).
+    (or to a 1024 bucket of zero rows, as JAX's table). Padding rows are
+    invalid and change no loss value. Padded to `max_pairs` (the train
+    driver gives the segment arena, so tens of thousands of rows), padding
+    row j points all four entries at endpoint j (modulo the endpoints in
+    use): the gather's backward on the card sums the rows of one endpoint
+    serially, and one endpoint under every padding row would make that run
+    as long as the padding.
     """
     strands = Strands.from_list(info.list_strands, (0, 2))
     sid = strands.strand_of_each()
@@ -232,11 +238,14 @@ def smooth_pair_indices(info: StrandsInfo, max_pairs: Optional[int] = None):
     pairs = np.stack([strands.flat[first], strands.flat[first + 1]],
                      axis=1).astype(np.int32).reshape(-1, 2, 2)
     m = pairs.shape[0]
+    spread = max_pairs is not None
     if max_pairs is None:
         max_pairs = max(1024, ((m + 1023) // 1024) * 1024)
     assert m <= max_pairs
     out = np.zeros((max_pairs, 2, 2), dtype=np.int32)
     out[:m] = pairs
+    if spread and strands.flat.size:
+        out[m:] = (np.arange(max_pairs - m) % (int(strands.flat.max()) + 1))[:, None, None]
     valid = np.zeros(max_pairs, dtype=bool)
     valid[:m] = True
     return out, valid

@@ -285,9 +285,12 @@ def make_gaussian_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
             lr_tree = lr_tree._replace(xyz=lr_tree.xyz.item())
         return train_step(params, stats, opt_state, active, camera, lr_tree)
 
+    def split(params, stats, opt_state, active, camera, step):
+        return (params, stats, opt_state, active), camera, step
+
     if reducer is not None or render_fn is not render:
         return step_fn
-    return GraphedStep(step_fn, train_step, lr_tree_at)
+    return GraphedStep(step_fn, train_step, lr_tree_at, split, "xyz")
 
 
 def _endpoint_term(loss_fn, params):
@@ -319,11 +322,21 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
     `device`; `step` is a Python int or a 0-d tensor, as in Stage I. The
     strand regularizers act on the replicated endpoints, so a `reducer`
     merges the render terms first and they are added once after it.
+    Without `render_fn` and `reducer` the step is a `graphed.GraphedStep`,
+    as in Stage I: on a CUDA device with one camera and without the magnet
+    term it is replayed as a CUDA graph that reads the params, the graph,
+    the statistics, Adam's state and the smoothness table, and returns its
+    static buffers.
     """
     resolve_device(device)
 
-    def step_fn(params, graph, stats, opt_state, camera, step, smooth_pairs,
-                smooth_valid, magnet_idx=None):
+    def magnet_on(magnet_idx):
+        return use_magnet and opt_cfg.lambda_magnet > 0 and magnet_idx is not None
+
+    def train_step(params, graph, stats, opt_state, smooth_pairs, smooth_valid,
+                   camera, lr_tree, in_place=False, magnet_idx=None):
+        """The step with its learning rates given; `in_place` writes the new
+        params, stats and opt_state into the given ones."""
         def one_view(cam):
             return render_loss_and_grads(
                 lambda p: hair_render_inputs(p, graph, cam.cam_center,
@@ -332,8 +345,9 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
                 render_fn=render_fn)
 
         loss, grads, offset_grad, aux = _per_view(one_view, camera)
-        loss, grads, loss_dict, stats, counters = _merge_views(
-            reducer, loss, grads, offset_grad, aux, stats, graph.seg_active)
+        loss, grads, loss_dict, new_stats, counters = _merge_views(
+            reducer, loss, grads, offset_grad, aux, stats, graph.seg_active,
+            out=stats if in_place else None)
 
         # the strand regularizers act on the endpoints directly
         if use_smooth and opt_cfg.lambda_smooth > 0:
@@ -344,7 +358,7 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
             grads = grads._replace(endpoints=grads.endpoints + g)
             loss_dict["smooth"] = smooth / opt_cfg.lambda_smooth
 
-        if use_magnet and opt_cfg.lambda_magnet > 0 and magnet_idx is not None:
+        if magnet_on(magnet_idx):
             m_ids, m_comp, m_valid = magnet_idx
             magnet, g = _endpoint_term(
                 lambda e: opt_cfg.lambda_magnet * strand_joints_magnet_loss(
@@ -353,11 +367,28 @@ def make_hair_train_step(opt_cfg, raster_cfg: RasterConfig, *, width: int,
             grads = grads._replace(endpoints=grads.endpoints + g)
             loss_dict["magnet"] = magnet / opt_cfg.lambda_magnet
 
-        lr_tree = hair_lr_tree(opt_cfg, step, spatial_lr_scale)
+        with torch.no_grad(), telemetry.span(telemetry.ADAM):
+            params, opt_state = adam_step(params, grads, opt_state, lr_tree,
+                                          out=(params, opt_state) if in_place else None)
+        return params, new_stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
+
+    def lr_tree_at(step):
+        return hair_lr_tree(opt_cfg, step, spatial_lr_scale)
+
+    def step_fn(params, graph, stats, opt_state, camera, step, smooth_pairs,
+                smooth_valid, magnet_idx=None):
+        lr_tree = lr_tree_at(step)
         if not torch.is_tensor(step):
             lr_tree = lr_tree._replace(endpoints=lr_tree.endpoints.item())
-        with torch.no_grad(), telemetry.span(telemetry.ADAM):
-            params, opt_state = adam_step(params, grads, opt_state, lr_tree)
-        return params, stats, opt_state, _metrics(loss, loss_dict, counters), aux["image"]
+        return train_step(params, graph, stats, opt_state, smooth_pairs, smooth_valid,
+                          camera, lr_tree, magnet_idx=magnet_idx)
 
-    return step_fn
+    def split(params, graph, stats, opt_state, camera, step, smooth_pairs,
+              smooth_valid, magnet_idx=None):
+        if magnet_on(magnet_idx):
+            return None
+        return (params, graph, stats, opt_state, smooth_pairs, smooth_valid), camera, step
+
+    if reducer is not None or render_fn is not render:
+        return step_fn
+    return GraphedStep(step_fn, train_step, lr_tree_at, split, "endpoints")

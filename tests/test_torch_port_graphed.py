@@ -1,4 +1,5 @@
-"""The Stage-I step replayed as a CUDA graph (hairgs_tpu_torch/train/graphed.py).
+"""The Stage-I and Stage-III steps replayed as a CUDA graph
+(hairgs_tpu_torch/train/graphed.py).
 
 On the CPU the capture backend is a fake that runs what it records: at
 capture the step once, at each replay the step again, its outputs written
@@ -8,8 +9,9 @@ what it copies in, what it returns, when it leaves the step eager, which
 graphs it frees and when it hands their memory back. The fake keeps the
 books of the graphs and pools alive, so a test bounds them.
 
-`test_graphed_steps_equal_eager_steps_on_the_card` is the same comparison
-on the card with real graphs; it skips without one. On the card, from the
+`test_graphed_steps_equal_eager_steps_on_the_card` and
+`test_graphed_hair_steps_equal_eager_steps_on_the_card` are the same
+comparisons on the card with real graphs; they skip without one. On the card, from the
 root of a checkout (the tests' conftest.py imports JAX, which the card's
 machine does not have):
 
@@ -17,8 +19,10 @@ machine does not have):
         -W ignore::pytest.PytestUnknownMarkWarning tests/test_torch_port_graphed.py
 """
 
+import contextlib
 import weakref
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,7 +33,7 @@ from hairgs_tpu_torch.optim import AdamState
 from hairgs_tpu_torch.render.renderer import RasterConfig, render
 from hairgs_tpu_torch.train import graphed
 from hairgs_tpu_torch.train.graphed import GraphedStep
-from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+from hairgs_tpu_torch.train.trainer import make_gaussian_train_step, make_hair_train_step
 
 W, H = 48, 32
 RASTER = RasterConfig(max_tiles_per_gaussian=8, max_pairs_per_tile=64, chunk=16,
@@ -370,3 +374,227 @@ def test_graphed_steps_equal_eager_steps_on_the_card(card):
     assert graphed.SHARED.live() == 1
     for a, b in zip(ran, eager):
         _assert_equal(a, b)
+
+
+class _HairScene:
+    """Strands of several segments of 4 mm from points of the bench scene's
+    cloud, in sharp bends (so the smoothness term acts), in a hair model;
+    the bench scene's cameras and optimisation settings."""
+
+    def __init__(self, n_strands=12, per_strand=4, width=W, height=H,
+                 capacity_round=64, device="cpu", seed=3):
+        from hairgs_tpu_torch.models.hair import HairModel
+
+        bench = build_bench_scene(n_gaussians=n_strands, width=width, height=height,
+                                  seed=seed, capacity_round=capacity_round,
+                                  device=device)
+        rng = np.random.default_rng(seed)
+        roots = bench.params.xyz[:n_strands].cpu().numpy()
+        steps = rng.normal(0, 1, (n_strands, per_strand, 3))
+        steps *= 4e-3 / np.linalg.norm(steps, axis=-1, keepdims=True)
+        points = roots[:, None] + np.concatenate(
+            [np.zeros((n_strands, 1, 3)), np.cumsum(steps, axis=1)], axis=1)
+        ids = np.arange(n_strands * (per_strand + 1)).reshape(n_strands, -1)
+        self.strands = [np.stack([i[:-1], i[1:]], axis=1) for i in ids]
+        ns = n_strands * per_strand
+        prob = lambda lo, hi, n: np.log(1 / rng.uniform(lo, hi, (n, 1)) - 1) * -1
+        seg = dict(features_dc=rng.normal(0, 0.5, (ns, 1, 3)),
+                   features_rest=np.zeros((ns, 0, 3)),
+                   opacity=prob(0.3, 0.9, ns), mask=prob(0.3, 0.9, ns),
+                   width=np.log(rng.uniform(5e-4, 2e-3, (ns, 1))))
+        self.model = HairModel(sh_degree=0, capacity_round=capacity_round, device=device)
+        self.model.install(points.reshape(-1, 3).astype(np.float32),
+                           np.concatenate(self.strands),
+                           {k: v.astype(np.float32) for k, v in seg.items()})
+        self.cams, self.opt_cfg = bench.cams, bench.opt_cfg
+        self.width, self.height, self.device = width, height, device
+
+    def tables(self, strands, capacity):
+        """The smoothness table of `strands`, padded to `capacity` rows as the
+        train driver pads it, on the device."""
+        from hairgs_tpu_torch.topo.strands import smooth_pair_indices
+
+        info = type("Info", (), {"list_strands": strands})
+        pairs, valid = smooth_pair_indices(info, max_pairs=capacity)
+        return (torch.from_numpy(pairs.astype(np.int64)).to(self.device),
+                torch.from_numpy(valid).to(self.device))
+
+    def start(self):
+        m = self.model
+        return (m.params, m.graph, m.stats, m.opt_state,
+                *self.tables(self.strands, m.capacity))
+
+    def step(self, raster=RASTER):
+        return make_hair_train_step(
+            self.opt_cfg, raster, width=self.width, height=self.height,
+            active_sh_degree=0, dist_to_scale_factor=self.model.dist_to_scale_factor,
+            device=self.device)
+
+    def merge(self):
+        """A merge's install at the same capacities, as a function of the
+        state: strand 1's root joined to strand 0's tip, so new
+        `endpoint_pairs` and a new smoothness table of the same shapes. Its
+        tensors are made here, before any step."""
+        row = len(self.strands[0])  # strand 1's first segment
+        joined = np.concatenate([self.strands[0], self.strands[1]])
+        joined[row, 0] = self.strands[0][-1, 1]
+        pairs = self.model.graph.endpoint_pairs.clone()
+        pairs[row] = torch.from_numpy(joined[row]).to(self.device)
+        tables = self.tables([joined] + self.strands[2:], self.model.capacity)
+
+        def install(state):
+            params, graph, stats, opt, _, _ = state
+            return (params, graph._replace(endpoint_pairs=pairs), stats, opt, *tables)
+
+        return install
+
+    def grown(self, state, rows=64):
+        """A densify's install: every arena `rows` rows longer (zero rows,
+        inactive), the smoothness table padded to the new capacity; nothing
+        comes from the host."""
+        params, graph, stats, opt, pairs, valid = state
+
+        def pad(t):
+            return torch.cat([t, torch.zeros((rows,) + t.shape[1:], dtype=t.dtype,
+                                             device=t.device)])
+
+        return (graphed._map(pad, params), graphed._map(pad, graph),
+                graphed._map(pad, stats),
+                AdamState(graphed._map(pad, opt.mu), graphed._map(pad, opt.nu), opt.step),
+                pad(pairs), pad(valid))
+
+
+def _run_hair(step, hair, state, installs, n=6, first=1, watch=None):
+    """n steps from `state`, `installs[i]` replacing the state before step i;
+    each step's (params, stats, opt_state), metrics and image, cloned.
+    `watch(i)` is a context around step i's call."""
+    out = []
+    for i in range(n):
+        if i in installs:
+            state = installs[i](state)
+        params, graph, stats, opt, pairs, valid = state
+        with watch(i) if watch else contextlib.nullcontext():
+            params, stats, opt, metrics, image = step(
+                params, graph, stats, opt, hair.cams[i % len(hair.cams)], first + i,
+                pairs, valid)
+        state = (params, graph, stats, opt, pairs, valid)
+        out.append((graphed._map(torch.clone, (params, stats, opt)),
+                    {k: m.clone() for k, m in metrics.items()}, image.clone()))
+    return out
+
+
+@pytest.mark.card
+def test_graphed_hair_steps_equal_eager_steps_on_the_card(card):
+    """Five graphed Stage-III steps on 2000 strands of 10 segments at 512²
+    equal five eager steps bit for bit (parameters, moments, statistics,
+    metrics with the smoothness term, image), through a merge's install
+    before the second (copied in) and a densify's before the third (a
+    re-capture, which frees the first graph), and no graphed step makes a
+    call that waits for the card (torch's sync debug mode raises on one)."""
+    hair = _HairScene(n_strands=2000, per_strand=10, width=512, height=512,
+                      capacity_round=4096, device=card)
+    raster = RasterConfig(max_tiles_per_gaussian=16, max_pairs_per_tile=1024, chunk=32,
+                          use_pallas=True, pair_capacity=200_000)
+    installs = {1: hair.merge(), 2: lambda state: hair.grown(state, 4096)}
+    eager = _run_hair(hair.step(raster).eager, hair, hair.start(), installs, n=5,
+                      first=100)
+    torch.cuda.synchronize()
+    step = hair.step(raster)
+    start = hair.start()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ran = _run_hair(step, hair, start, installs, n=5, first=100)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert step._graph is graphed.SHARED.held is not None
+    assert graphed.SHARED.live() == 1
+    assert float(ran[-1][1]["loss/smooth"]) > 0
+    for a, b in zip(ran, eager):
+        _assert_equal(a, b)
+
+
+def test_the_eager_hair_step_runs_where_no_graph_can():
+    """A Stage-III step with the magnet term on takes the eager step and
+    captures nothing; a reducer or another render function builds no
+    graphed step."""
+    import dataclasses
+
+    from hairgs_tpu_torch.topo.strands import magnet_indices
+
+    hair = _HairScene()
+    opt_cfg = dataclasses.replace(hair.opt_cfg, lambda_magnet=0.5)
+    common = dict(width=hair.width, height=hair.height, active_sh_degree=0,
+                  dist_to_scale_factor=hair.model.dist_to_scale_factor, device="cpu")
+    step = make_hair_train_step(opt_cfg, RASTER, use_magnet=True, **common)
+    fake = step.backend = FakeGraphs()
+    magnet = tuple(torch.from_numpy(a.astype(np.int64) if a.dtype != bool else a)
+                   for a in magnet_indices(hair.model))
+    params, graph, stats, opt, pairs, valid = hair.start()
+    got = step(params, graph, stats, opt, hair.cams[0], 1, pairs, valid, magnet)
+    expect = step.eager(params, graph, stats, opt, hair.cams[0], 1, pairs, valid, magnet)
+    assert fake.captures == 0 and step._graph is None
+    assert float(got[3]["loss/magnet"]) > 0
+    _assert_equal((got[:3], got[3], got[4]), (expect[:3], expect[3], expect[4]))
+    for kwargs in (dict(reducer=object()),
+                   dict(render_fn=lambda *a, **k: render(*a, **k))):
+        assert not isinstance(make_hair_train_step(opt_cfg, RASTER, **common, **kwargs),
+                              GraphedStep)
+
+
+HAIR_STATE = (["params"] * 6 + ["endpoint_pairs", "seg_active", "ep_active"]
+              + ["stats"] * 3 + ["opt_state"] * 13 + ["smooth_pairs", "smooth_valid"])
+
+
+def test_graphed_hair_steps_equal_eager_steps_through_a_merge_and_a_densify(
+        books, monkeypatch):
+    """Six Stage-III steps through the fake equal six eager steps bit for bit
+    (parameters, moments, statistics, metrics with the smoothness term,
+    image). A merge's install between steps 2 and 3 (new endpoint pairs and
+    a new smoothness table of the same shapes) is copied in with no
+    capture, and nothing of the params, statistics and Adam's state is
+    copied; a densify's install between steps 4 and 5 (new capacities)
+    captures once more, and one graph stays alive."""
+    hair = _HairScene()
+    installs = {2: hair.merge(), 4: hair.grown}
+    expect = _run_hair(hair.step().eager, hair, hair.start(), installs)
+    step = hair.step()
+    assert isinstance(step, GraphedStep) and isinstance(step.backend, FakeGraphs)
+    fake = step.backend
+    copy = torch.Tensor.copy_
+    copied = set()
+
+    @contextlib.contextmanager
+    def watch(i):
+        if i != 2:
+            yield
+            return
+        captures, into = fake.captures, []
+
+        def counted(dst, src, *a, **k):
+            if not fake.replaying:
+                into.append(dst.data_ptr())
+            return copy(dst, src, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, "copy_", counted)
+        try:
+            yield
+        finally:
+            monkeypatch.setattr(torch.Tensor, "copy_", copy)
+        assert fake.captures == captures
+        leaves = graphed._leaves(step._state)
+        assert len(leaves) == len(HAIR_STATE)
+        buffers = {t.data_ptr(): name for name, t in zip(HAIR_STATE, leaves) if t.numel()}
+        copied.update(buffers[p] for p in into if p in buffers)
+
+    ran = _run_hair(step, hair, hair.start(), installs, watch=watch)
+    for a, b in zip(ran, expect):
+        _assert_equal(a, b)
+    assert float(ran[-1][1]["loss/smooth"]) > 0
+    assert (fake.captures, fake.replays) == (2, 4)
+    assert live_graphs() == 1 and books == [(1, 1), (1, 1)]
+    assert int(ran[-1][0][2].step) == 6
+    # the caller's graph and table are not the step's buffers: copied at
+    # every replay, the merge's new ones among them
+    assert copied == {"endpoint_pairs", "seg_active", "ep_active", "smooth_pairs",
+                      "smooth_valid"}

@@ -222,6 +222,49 @@ def test_angle_smoothness_loss_matches_jax():
     assert float(v0.detach()) == 0.0 and float(g0.abs().max()) == 0.0
 
 
+def test_smoothness_table_padded_to_the_arena_changes_nothing():
+    """The train driver pads the smoothness table to the segment arena's
+    capacity, so its shape changes only with the arena's. On a graph of
+    several-segment strands (as merges leave them) the loss and its endpoint
+    gradient equal those of the table in its 1024-row bucket, and match
+    JAX's loss on JAX's table within the tolerances above. Its padding rows
+    point at endpoints spread over the graph, not all at endpoint 0."""
+    from hairgs_tpu.losses.strand import angle_smoothness_loss as jloss
+    from hairgs_tpu.topo.strands import compute_strands_info as jinfo
+    from hairgs_tpu.topo.strands import smooth_pair_indices as jsmooth
+    from hairgs_tpu_torch.losses.strand import angle_smoothness_loss
+    from hairgs_tpu_torch.topo.strands import compute_strands_info, smooth_pair_indices
+
+    jm, tm = both_models(hair_arrays(seed=6, n_strands=10))
+    for m in (jm, tm):
+        m.ref_strand_root = np.array([[0.0, 0.0, 2.0]], np.float32)
+    info = compute_strands_info(tm)
+    arena = smooth_pair_indices(info, max_pairs=tm.capacity)
+    bucket = smooth_pair_indices(info)
+    assert arena[0].shape[0] == tm.capacity != bucket[0].shape[0] == 1024
+    assert arena[1].sum() == bucket[1].sum() > 0
+    # each padding row on one endpoint, the rows spread over the endpoints
+    pad = arena[0][~arena[1]]
+    assert (pad == pad[:, :1, :1]).all()
+    assert np.bincount(pad[:, 0, 0]).max() <= -(-pad.shape[0] // info.list_strands.flat.max())
+    eps = tm.params.endpoints.detach()
+
+    def value_and_grad(sp, valid):
+        e = eps.clone().requires_grad_(True)
+        v = angle_smoothness_loss(e, torch.from_numpy(sp).long(), torch.from_numpy(valid))
+        (g,) = torch.autograd.grad(v, e)
+        return v.detach(), g
+
+    (va, ga), (vb, gb) = value_and_grad(*arena), value_and_grad(*bucket)
+    assert float(va) > 0
+    assert torch.equal(va, vb) and torch.equal(ga, gb)
+    sp, valid = jsmooth(jinfo(jm))
+    vj, gj = jax.jit(jax.value_and_grad(
+        lambda e: jloss(e, jnp.asarray(sp), jnp.asarray(valid))))(jnp.asarray(eps.numpy()))
+    np.testing.assert_allclose(float(va), float(vj), rtol=1e-6)
+    _close_grad(ga.numpy(), gj, 1e-5, "smooth")
+
+
 def test_magnet_loss_matches_jax_with_ties():
     """Tips on a grid (equidistant neighbours, so the top 3 tie), pad rows,
     a tip whose segment is collapsed (invalid), against lax.top_k."""

@@ -226,31 +226,53 @@ def _check_one_step(batched, use_pallas):
         assert torch.isfinite(getattr(tp2, name)).all(), name
 
 
-@pytest.mark.parametrize("use_pallas", [True, False])
-def test_one_train_step_makes_no_constant_from_a_host_number(use_pallas, monkeypatch):
-    """A whole Stage-I step makes no tensor from a host number: on the card
-    such a copy waits for the device, and a CUDA graph could not capture
-    it. `torch.tensor` and `Tensor.new_tensor` raise while the step runs."""
+@pytest.mark.parametrize("stage,use_pallas", [
+    pytest.param("stage1", True, id="True"),
+    pytest.param("stage1", False, id="False"),
+    pytest.param("stage3", True, id="stage3-True"),
+    pytest.param("stage3", False, id="stage3-False"),
+])
+def test_one_train_step_makes_no_constant_from_a_host_number(stage, use_pallas,
+                                                             monkeypatch):
+    """A whole step makes no tensor from a host number: on the card such a
+    copy waits for the device, and a CUDA graph could not capture it.
+    `torch.tensor` and `Tensor.new_tensor` raise while the step runs: a
+    Stage-I step, and a Stage-III step with the smoothness term on."""
     from hairgs_tpu_torch.models.gaussian import stats_from_numpy
     from hairgs_tpu_torch.optim import adam_init
-    from hairgs_tpu_torch.train.trainer import make_gaussian_train_step
+    from hairgs_tpu_torch.train.trainer import (
+        make_gaussian_train_step,
+        make_hair_train_step,
+    )
 
-    cam, arrays = _scene()
-    _, (tp, tactive, topt, traster, tcam) = _both_sides(cam, arrays, use_pallas)
-    tstats = stats_from_numpy(dict(max_radii2d=np.zeros(N, np.float32),
-                                   xyz_grad_accum=np.zeros((N, 1), np.float32),
-                                   denom=np.zeros((N, 1), np.float32)), CPU)
-    opt = adam_init(tp)
-    step = make_gaussian_train_step(topt, traster, width=WIDTH, height=HEIGHT,
-                                    active_sh_degree=0, device="cpu")
+    if stage == "stage1":
+        cam, arrays = _scene()
+        _, (tp, tactive, topt, traster, tcam) = _both_sides(cam, arrays, use_pallas)
+        tstats = stats_from_numpy(dict(max_radii2d=np.zeros(N, np.float32),
+                                       xyz_grad_accum=np.zeros((N, 1), np.float32),
+                                       denom=np.zeros((N, 1), np.float32)), CPU)
+        step = make_gaussian_train_step(topt, traster, width=WIDTH, height=HEIGHT,
+                                        active_sh_degree=0, device="cpu")
+        args = (tp, tstats, adam_init(tp), tactive, tcam, 1)
+    else:
+        from tests.test_torch_port_hair import _step_inputs
+
+        _, tm, _, tcam, _, topt, sp, sv, _, _, traster = _step_inputs(use_pallas)
+        step = make_hair_train_step(topt, traster, width=WIDTH, height=HEIGHT,
+                                    active_sh_degree=0, device="cpu",
+                                    dist_to_scale_factor=tm.dist_to_scale_factor)
+        args = (tm.params, tm.graph, tm.stats, tm.opt_state, tcam, 1,
+                torch.from_numpy(sp).long(), torch.from_numpy(sv))
 
     def refuse(*args, **kwargs):
         raise AssertionError("a tensor made from a host number inside the step")
 
     monkeypatch.setattr(torch, "tensor", refuse)
     monkeypatch.setattr(torch.Tensor, "new_tensor", refuse)
-    _, _, opt2, metrics, _ = step(tp, tstats, opt, tactive, tcam, 1)
+    _, _, opt2, metrics, _ = step(*args)
     assert int(opt2.step) == 1 and np.isfinite(float(metrics["loss"]))
+    if stage == "stage3":
+        assert float(metrics["loss/smooth"]) > 0
 
 
 @pytest.mark.parametrize("n,width,height", [(500, 64, 48)])
